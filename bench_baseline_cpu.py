@@ -72,7 +72,7 @@ def main():
         "backend": "cpu (XLA, 1 core via taskset; "
                    "multi_thread_eigen=false)",
         "workload": f"{num_samples} samples x {T} knots, identical "
-                    f"solver config to the TPU bench",
+                    f"solver config to bench.py",
         "farm18_extrapolated_iters_per_s": round(18.0 / dt, 4),
         "note": "farm18 assumes perfect 18-worker scaling of the "
                 "estimation sweep AND free trajectory-QP/rollout phases "

@@ -12,6 +12,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
+from irs_mpc_tpu.utils.runtime import setup_compile_cache
+
+setup_compile_cache()
+
 ANALYSIS_DIR = Path(__file__).resolve().parent / "analysis"
 
 

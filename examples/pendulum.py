@@ -39,7 +39,7 @@ def main():
     # (pendulum_cem.py:20-25) but with a population sized for the 200-dim
     # input search (batch 8000 / 80 elites / 150 iterations vs the
     # reference's 1000/10/7): a vmapped population iteration is nearly free
-    # on TPU vs the reference's 1000 serial python rollouts.  elite_keep
+    # on an accelerator vs the reference's 1000 serial python rollouts.  elite_keep
     # re-injects the 10 best known trajectories each generation
     # (solvers/cem.py, default-off knob), which alone moved the final
     # 422 -> 377; noise_knots=40 (band-limited exploration — the swing-up

@@ -70,12 +70,12 @@ def build_solver(gradient_mode="zero_order_B", num_samples=50, T=30,
         # Over-relaxed ADMM (a=1.6) needs 12 sweeps where plain needs 30:
         # per-mode finals at (12, 1.6) = 17.18/14.54/14.51/14.89 vs
         # (30, 1.0) = 17.03/14.62/14.72/14.76 — equal within sampling noise,
-        # at 6.97 vs 8.17 ms/iteration on the TPU chip.
+        # at fewer serial sweeps per iteration.
         admm_iters=12,
         admm_over_relax=1.6,
         report_final_cost_with_Q=False,   # quasistatic path uses Qd
         # Cheaper contact solves for the (noisy) Monte-Carlo sweep
-        # (reduced QP iterations + Pallas lane-batched solver on TPU).
+        # (reduced QP iterations + the fused sweep hook).
         estimation_system=model.estimation_surrogate(),
     )
     if overrides:

@@ -12,20 +12,13 @@ from irs_mpc_tpu.solvers.cem import CemParams, CrossEntropyMethod
 
 
 def build_solver(T=30, batch_size=2000, n_elite=100):
-    """Population sized for TPU (the reference's 100 serial python rollouts
-    -> 2000 vmapped contact rollouts at the same wall-clock) with the
+    """Population sized for an accelerator (the reference's 100 serial
+    python rollouts -> 2000 vmapped contact rollouts) with the
     iCEM-class knobs from solvers/cem.py (default-off).  Sweep on this task:
     vanilla 100/15 -> 17.4; this config -> 6.9 — BELOW the iRS smoothed
     floor (14.5-14.7): the AR(1)-correlated arm motions find a faster ball
     transit than the trust-regioned local descent."""
     model = make_planar_hand(h=0.1)
-    # NOTE (r5 measured): routing the population rollouts through the
-    # lane-batched Pallas kernel (model.system(pallas_batch=True) +
-    # System.rollout_batch) degrades CEM solution quality on contact
-    # tasks (box_pushing 47.2 -> 57.0, box_pivoting 134.3 -> 260.7):
-    # candidates are then scored by cold kernel lanes while the accepted
-    # mean rolls the warm XLA chain, and the scoring mismatch corrupts
-    # elite selection.  CEM therefore keeps the warm vmapped chains.
     system = model.system()
     idx_u = model.indices_u_into_x()
 

@@ -132,7 +132,7 @@ def build_cem_solver(control_mode="position", T=30, batch_size=16000,
         extra = dict(indices_u_into_x=idx_u, R=np.eye(4) * 5.0,
                      u_trj_init=np.tile(Q0[idx_u], (T, 1)),
                      initial_std=np.ones(4) * 0.15)
-        # iCEM-class knobs (see solvers/cem.py): with a TPU-sized
+        # iCEM-class knobs (see solvers/cem.py): with an accelerator-sized
         # population this search brackets the plant's floor at ~5.7
         # (16k/300 -> 5.71, 8k/600 -> 5.95), right where the iRS sweep
         # lands (6.07) and far above the reference's 3.76 on ITS geometry

@@ -72,8 +72,8 @@ def build_cem_solver(T=30, batch_size=2000, n_elite=100):
     batch 100, initial_std 0.2, Qd = 10 Q).
 
     The reference's 100-trajectory population is sized for serial python
-    rollouts; on TPU a 2000-wide contact population costs the same
-    wall-clock, and the iCEM-class knobs (AR(1) noise beta=0.85, refit
+    rollouts; on an accelerator a 2000-wide contact population is one
+    vmapped program, and the iCEM-class knobs (AR(1) noise beta=0.85, refit
     momentum, elite persistence, std floor — solvers/cem.py, default-off)
     turn the spin search from a 175-cost plateau into 37 — BELOW the best
     iRS smoothed mode (53).  Sweep: vanilla/100 -> 175.3, vanilla/1000 ->

@@ -68,7 +68,7 @@ def build_solver(gradient_mode="zero_order_B", num_samples=100, T=30):
         admm_iters=30,
         report_final_cost_with_Q=False,
         # Cheaper contact solves for the (noisy) Monte-Carlo sweep
-        # (reduced QP iterations + Pallas lane-batched solver on TPU).
+        # (reduced QP iterations + the fused sweep hook).
         estimation_system=model.estimation_surrogate(),
     )
     return IrsMpc(system, params), model

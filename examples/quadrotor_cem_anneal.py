@@ -19,7 +19,7 @@ Artifact: analysis/quadrotor_cem_anneal.csv (concatenated cost curve) and
 a printed per-phase summary consumed by PARITY.md — either the anneal
 breaks the ~8k plateau or it pins the plateau as schedule-independent.
 
-OUTCOME (recorded run, TPU): phase bests 22967 -> 11024 -> 9250.  The
+OUTCOME (recorded run): phase bests 22967 -> 11024 -> 9250.  The
 coarse phase plateaus far above vanilla (the helix cannot even be tracked
 at 20-knot resolution) and the fine phases recover only to 9.25k — WORSE
 than vanilla's 8.2k at equal total budget.  Together with the static

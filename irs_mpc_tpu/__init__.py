@@ -1,4 +1,4 @@
-"""irs_mpc_tpu — TPU-native iterative Randomized-Smoothing MPC framework.
+"""irs_mpc_tpu — iterative Randomized-Smoothing MPC on an accelerator.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 hjsuh94/irs_mpc (reference mounted at /root/reference): smoothed

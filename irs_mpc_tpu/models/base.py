@@ -1,4 +1,4 @@
-"""Dynamical-system abstraction for the TPU-native iRS-MPC framework.
+"""Dynamical-system abstraction for the iRS-MPC framework.
 
 The reference (``/root/reference/irs_lqr/dynamical_system.py:12-66``) defines a
 virtual class with four methods (``dynamics``, ``dynamics_batch``,
@@ -44,9 +44,6 @@ class System:
     step: StepFn
     # Optional projection of samples onto a constraint manifold.
     projection: Optional[ProjectionFn] = None
-    # Optional hand-optimized batched step (e.g. a Pallas kernel); falls
-    # back to vmap(step).  Must be numerically equivalent to vmap(step).
-    step_batch_fn: Optional[Callable[[Array, Array], Array]] = None
     # Optional warm-started step for serial rollout chains:
     # (x, u, carry) -> (x_next, carry).  A system whose step is itself an
     # iterative solve (contact QPs) can warm-start each knot from the
@@ -69,21 +66,11 @@ class System:
     # f_nom must be at least as accurate as vmap(step) so callers may reuse
     # it for the affine drift c and decouple_AB's re-derivation.
     est_sweep_fn: Optional[Callable] = None
-    # Optional whole-chain line-searched feedback rollout (a Pallas kernel
-    # running every line-search lane x every knot x geometry + warm QP in
-    # one VMEM program, models/contact/pallas_rollout.py).  Signature:
-    # (x0, u_prev0, K, z_ref_x, z_ref_w|None, u_ref, lb, ub,
-    #  rel_lb|None, rel_ub|None) -> (xs (A,T+1,n), us (A,T,m)).
-    # Must match the solver's XLA scan rollout; the solver uses it only on
-    # the Pallas backend.
-    ls_rollout_fn: Optional[Callable] = None
 
     # ---- derived operators (all jit/vmap/shard compatible) -------------
 
     def step_batch(self, x: Array, u: Array) -> Array:
         """Batched dynamics: (B,n),(B,m) -> (B,n)."""
-        if self.step_batch_fn is not None:
-            return self.step_batch_fn(x, u)
         return jax.vmap(self.step)(x, u)
 
     def jacobian_xu(self, x: Array, u: Array) -> Array:
@@ -120,38 +107,9 @@ class System:
         return jnp.concatenate([x0[None], xs], axis=0)
 
     def rollout_batch(self, x0: Array, u_trj_b: Array) -> Array:
-        """Population rollout: (n,), (B, T, m) -> (B, T+1, n).
-
-        Routes through ``step_batch`` — the lane-batched Pallas kernel
-        when the system carries one — so population workloads (CEM's 16k
-        candidates) ride the batch-saturated kernel instead of a vmapped
-        scalar chain.  Falls back to ``vmap(rollout)`` (per-candidate
-        warm chains) when no hand-optimized batch step exists, so CPU
-        behavior is unchanged.
-
-        The population axis is padded to a multiple of 8 (repeated last
-        row, sliced off after) — XLA:TPU runs fixed-iteration solver scans
-        ~20x slower when the flat batch is not sublane-aligned (see
-        ops/estimators.py module note); per-row results are unchanged."""
-        B = u_trj_b.shape[0]
-        pad = (-B) % 8
-        if pad:
-            u_trj_b = jnp.concatenate(
-                [u_trj_b, jnp.broadcast_to(u_trj_b[-1:],
-                                           (pad,) + u_trj_b.shape[1:])],
-                axis=0)
-        if self.step_batch_fn is None:
-            out = jax.vmap(lambda u: self.rollout(x0, u))(u_trj_b)
-            return out[:B] if pad else out
-        x0b = jnp.broadcast_to(x0, (B + pad,) + x0.shape)
-
-        def body(x, u_t):
-            xn = self.step_batch_fn(x, u_t)
-            return xn, xn
-
-        _, xs = jax.lax.scan(body, x0b, jnp.swapaxes(u_trj_b, 0, 1))
-        out = jnp.swapaxes(jnp.concatenate([x0b[None], xs], axis=0), 0, 1)
-        return out[:B] if pad else out
+        """Population rollout: (n,), (B, T, m) -> (B, T+1, n), one
+        (warm-chained, where the system has one) rollout per candidate."""
+        return jax.vmap(lambda u: self.rollout(x0, u))(u_trj_b)
 
     def __hash__(self):  # static closure key for jit caching
         return hash((self.name, self.dim_x, self.dim_u, self.h, id(self.step)))

@@ -181,7 +181,7 @@ class Mbp2DModel:
 
         MEASURED CAVEAT (r5, why the bundled drivers do NOT wire this in):
         the second-order planar-hand curve finals are basin-chaotic under
-        any estimate perturbation.  On TPU, 15 iters: spin zero_order_B
+        any estimate perturbation.  With 15 iters: spin zero_order_B
         7.40 -> 15.8 (translate improved 7.38 -> 6.11, torque 64.4 ->
         45.2); 20 iters: spin restored (7.42) but torque 64.4 -> 74.3 and
         translate zero_order_AB 9.23 -> 15.2.  Every budget reshuffles

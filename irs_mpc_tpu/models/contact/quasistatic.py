@@ -1,6 +1,6 @@
 """Differentiable quasistatic contact dynamics (Anitescu convex time-stepping).
 
-The TPU-native replacement for the reference's external C++ contact engine
+The on-device replacement for the reference's external C++ contact engine
 (``QuasistaticSimulatorCpp`` driven through
 ``/root/reference/irs_lqr/quasistatic_dynamics.py``): position-controlled
 robots with stiffness Kp, quasi-dynamic unactuated objects, friction via the
@@ -102,19 +102,13 @@ class QuasistaticModel:
     # chains: the two cone rows of a contact share a near-degenerate
     # direction (the intra-pair split; measured: identical warm solves
     # agree on dq to 7e-5 while lam differs 87%), along which float-order
-    # dust grows knot-to-knot and two equally-valid chains (Pallas kernel
-    # vs XLA scan) drift apart.  Replacing each pair (lam1, lam2) by its
+    # dust grows knot-to-knot.  Replacing each pair (lam1, lam2) by its
     # mean preserves the contact's total (normal-force) memory while
-    # zeroing the free direction, pinning both chains to the same
-    # canonical trajectory — which is what admits STIFF systems to the
-    # whole-chain rollout kernel (box_pivoting: kernel+canon measures
-    # 186.8 best vs the 228.6 XLA-chain curve; see
-    # pallas_rollout.chain_gate).  Default OFF: the projection also
-    # resets the friction-force component mu*(lam1-lam2) each knot, and
-    # friction-memory tasks measurably lose their basins with it
-    # (planar_hand_spin first_order 54.1 -> 127.9; plate_pickup's
-    # kernel-chain grasp 3.39 -> 6.20).  Enable per model where measured
-    # beneficial.
+    # zeroing the free direction, which steadies STIFF warm chains.
+    # Default OFF: the projection also resets the friction-force
+    # component mu*(lam1-lam2) each knot, and friction-memory tasks
+    # measurably lose their basins with it (planar_hand_spin first_order
+    # 54.1 -> 127.9).  Enable per model where measured beneficial.
     canon_warm_duals: bool = False
 
     def __post_init__(self):
@@ -313,51 +307,15 @@ class QuasistaticModel:
             lam_c = self.canon_duals(lam_c)
         return q + dq, (dq_c, lam_c)
 
-    def system(self, pallas_batch: bool = False) -> System:
-        """Wrap as the framework's System (step/vmap/jacfwd derived).
-
-        ``pallas_batch=True`` routes ``step_batch`` through the lane-batched
-        Pallas PDIP kernel (models/contact/pallas_qp.py) — ~2.8x faster than
-        the vmapped path on TPU for the Monte-Carlo estimation sweeps.  TPU
-        only; single steps and Jacobians keep the differentiable path.
-        """
-        step_batch_fn = None
-        if pallas_batch and self.pairs:
-            import jax as _jax
-            from .pallas_qp import solve_qp_batched
-
-            # NOTE (r4 negative result): fusing the assembly INTO a dense-
-            # layout Pallas kernel (pallas_rollout-style (B, k) tiles) does
-            # not fit — every (B, 1) scalar column lane-pads 128x, so the
-            # estimation batch blows the 16 MB VMEM budget (measured 21-24
-            # MB at block 256-1024).  A fused path needs the lane-batched
-            # scalar-tile layout of pallas_qp with a sparse in-kernel
-            # assembly; until then the assembly stays in XLA.
-            def step_batch_fn(x, u):
-                P, b = _jax.vmap(self._hessian_and_bias)(x, u)
-                C, d = _jax.vmap(self._constraint_rows)(x)
-                dq = solve_qp_batched(P, b, C, d, iters=self.qp_iters)
-                return x + dq
-
+    def system(self) -> System:
+        """Wrap as the framework's System (step/vmap/jacfwd derived)."""
         use_ws = self.qp_iters_ws > 0 and bool(self.pairs)
-
-        ls_rollout_fn = None
-        if use_ws:
-            from . import pallas_rollout
-            if (pallas_rollout.supports_model(self)
-                    and pallas_rollout.chain_gate(self)):
-                def ls_rollout_fn(*args):
-                    return pallas_rollout.linesearch_rollout_pallas(
-                        self, *args)
-
         return System(name=self.name, dim_x=self.nq, dim_u=self.dim_u,
                       h=self.h, step=self.step,
-                      step_batch_fn=step_batch_fn,
                       step_ws_fn=self.step_ws if use_ws else None,
-                      ws_init_fn=self.ws_init if use_ws else None,
-                      ls_rollout_fn=ls_rollout_fn)
+                      ws_init_fn=self.ws_init if use_ws else None)
 
-    def _est_sweep_fn(self, qp_iters_samples: int, use_pallas: bool):
+    def _est_sweep_fn(self, qp_iters_samples: int):
         """Fused estimation sweep (System.est_sweep_fn contract): nominal
         steps at FULL accuracy (``self.qp_iters``) + all sample steps at
         the surrogate budget, one batched pass.
@@ -383,22 +341,15 @@ class QuasistaticModel:
         """
         import jax as _jax
 
-        from .pallas_qp import solve_qp_batched
-
         def est_sweep(x_nom, u_nom, dx, du):
             T, S, m = du.shape
             nq = self.nq
-            # Nominal batch at full accuracy (with the same solver family
-            # the samples use, so kernel-vs-XLA lane drift cannot bias the
-            # fitted deltas' baseline).
+            # Nominal batch at full accuracy.
             Pn, bn = _jax.vmap(self._hessian_and_bias)(x_nom, u_nom)
             Cn, dn = _jax.vmap(self._constraint_rows)(x_nom)
-            if use_pallas:
-                dq0 = solve_qp_batched(Pn, bn, Cn, dn, iters=self.qp_iters)
-            else:
-                dq0 = _jax.vmap(
-                    lambda P, b, C, d: solve_qp(P, b, C, d, self.qp_iters)
-                )(Pn, bn, Cn, dn)
+            dq0 = _jax.vmap(
+                lambda P, b, C, d: solve_qp(P, b, C, d, self.qp_iters)
+            )(Pn, bn, Cn, dn)
             f_nom = x_nom + dq0
 
             if dx is None:
@@ -412,14 +363,9 @@ class QuasistaticModel:
             Pb, bb = _jax.vmap(_jax.vmap(self._hessian_and_bias))(xp, up)
 
             flat = lambda a: a.reshape((T * S,) + a.shape[2:])
-            if use_pallas:
-                dq = solve_qp_batched(flat(Pb), flat(bb), flat(Cb),
-                                      flat(db), iters=qp_iters_samples)
-            else:
-                dq = _jax.vmap(
-                    lambda P, b, C, d: solve_qp(P, b, C, d,
-                                                qp_iters_samples)
-                )(flat(Pb), flat(bb), flat(Cb), flat(db))
+            dq = _jax.vmap(
+                lambda P, b, C, d: solve_qp(P, b, C, d, qp_iters_samples)
+            )(flat(Pb), flat(bb), flat(Cb), flat(db))
             fd = xp + dq.reshape(T, S, nq)
             return f_nom, fd
 
@@ -427,17 +373,13 @@ class QuasistaticModel:
 
     def estimation_surrogate(self, qp_iters: int = 15) -> System:
         """Cheaper system for the Monte-Carlo estimation sweep: reduced QP
-        iterations, the Pallas lane-batched solver when running on TPU, and
-        the fused sweep hook (one nominal solve at full accuracy + shared-
-        constraint sample assembly).  Pass as
+        iterations and the fused sweep hook (one nominal solve at full
+        accuracy + shared-constraint sample assembly).  Pass as
         ``IrsMpcParams.estimation_system``."""
         import dataclasses as _dc
 
-        import jax as _jax
-        use_pallas = _jax.default_backend() == "tpu"
         cheap = _dc.replace(self, qp_iters=qp_iters)
-        sys = cheap.system(pallas_batch=use_pallas)
+        sys = cheap.system()
         if not self.pairs:
             return sys
-        return _dc.replace(
-            sys, est_sweep_fn=self._est_sweep_fn(qp_iters, use_pallas))
+        return _dc.replace(sys, est_sweep_fn=self._est_sweep_fn(qp_iters))

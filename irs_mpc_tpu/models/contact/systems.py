@@ -111,11 +111,10 @@ def make_box_pivoting(h: float = 0.05, mu: float = 0.6) -> QuasistaticModel:
                           stiffness=(50000.0, 50000.0)),
         ),
         bodies=(box, hand, world), pairs=pairs, gravity=(0.0, -10.0),
-        # Opt into the canonical dual carry: it is what stabilizes the
-        # Kp=5e4 warm chains enough for the whole-chain rollout kernel
-        # (measured 186.8 best vs 228.6 on the XLA chain; the friction-
-        # memory downside documented on canon_warm_duals does not bite
-        # this task — pivoting is normal-force dominated).
+        # Opt into the canonical dual carry: it steadies the Kp=5e4 warm
+        # chains (the friction-memory downside documented on
+        # canon_warm_duals does not bite this task — pivoting is
+        # normal-force dominated).
         canon_warm_duals=True)
 
 

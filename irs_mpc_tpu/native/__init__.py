@@ -116,3 +116,85 @@ def qp_ineq_solve_grad(P, q, C, d, dP=None, dq=None, dC=None, dd=None,
         raise RuntimeError("native QP oracle: active-set refinement did not "
                            "converge (problem likely infeasible)")
     return x, lam, dx
+
+
+def boxed_tvlqr_oracle(prob, bounds, n_phys: int, idx_w=None,
+                       iters: int = 20000):
+    """Dense f64 reference for ops/admm.solve_boxed_tvlqr: the whole boxed
+    TV-LQR QP (all four bound kinds) stacked into one box-and-equality QP
+    and solved by :func:`qp_box_eq_solve`.
+
+    Variables w = [x_0..x_T, u_0..u_{T-1}, s_dx (if dx), s_du (if du)] with
+    equalities x_0 = x0, the dynamics, s_dx_t = x_{t+1} - x_t (physical
+    block) and s_du_t = u_t - x_t[idx_w].  ``prob`` is ops/lqr.LqrProblem,
+    ``bounds`` ops/admm.BoxBounds.  Returns (x (T+1, n), u (T, m))."""
+    f64 = lambda a: np.asarray(a, np.float64)
+    A, B, c = f64(prob.A), f64(prob.B), f64(prob.c)
+    T, n, m = B.shape
+    has_dx, has_du = bounds.dx is not None, bounds.du is not None
+    nx, nu = (T + 1) * n, T * m
+    o_dx = nx + nu
+    o_du = o_dx + (T * n_phys if has_dx else 0)
+    nv = o_du + (T * m if has_du else 0)
+    xi = lambda t: slice(t * n, (t + 1) * n)
+    ui = lambda t: slice(nx + t * m, nx + (t + 1) * m)
+
+    H = np.zeros((nv, nv))
+    f = np.zeros(nv)
+    for t in range(T):
+        N = f64(prob.N[t])
+        H[xi(t), xi(t)] += 2 * f64(prob.Q[t])
+        H[ui(t), ui(t)] += 2 * f64(prob.R[t])
+        H[xi(t), ui(t)] += 2 * N
+        H[ui(t), xi(t)] += 2 * N.T
+        f[xi(t)] += 2 * f64(prob.q[t])
+        f[ui(t)] += 2 * f64(prob.r[t])
+    H[xi(T), xi(T)] += 2 * f64(prob.Qf)
+    f[xi(T)] += 2 * f64(prob.qf)
+
+    rows = []
+    def eq(coeffs, rhs):
+        row = np.zeros(nv)
+        for sl, val in coeffs:
+            row[sl] += val
+        rows.append((row, rhs))
+
+    for i in range(n):
+        eq([(i, 1.0)], f64(prob.x0)[i])
+    for t in range(T):
+        for i in range(n):
+            coeffs = [(slice(t * n, (t + 1) * n), A[t, i]),
+                      (slice(nx + t * m, nx + (t + 1) * m), B[t, i]),
+                      ((t + 1) * n + i, -1.0)]
+            eq(coeffs, -c[t, i])
+        if has_dx:
+            for i in range(n_phys):
+                eq([(o_dx + t * n_phys + i, 1.0), ((t + 1) * n + i, -1.0),
+                    (t * n + i, 1.0)], 0.0)
+        if has_du:
+            w_idx = np.asarray(idx_w)
+            for j in range(m):
+                eq([(o_du + t * m + j, 1.0), (nx + t * m + j, -1.0),
+                    (t * n + int(w_idx[j]), 1.0)], 0.0)
+    E = np.stack([r for r, _ in rows])
+    d = np.asarray([v for _, v in rows])
+
+    big = 1e9
+    lb, ub = np.full(nv, -big), np.full(nv, big)
+    if bounds.x is not None:
+        bx = f64(bounds.x)
+        for t in range(1, T + 1):      # x_0 is pinned by its equality
+            lb[t * n:t * n + n_phys] = bx[0, t]
+            ub[t * n:t * n + n_phys] = bx[1, t]
+    if bounds.u is not None:
+        bu = f64(bounds.u)
+        lb[nx:nx + nu], ub[nx:nx + nu] = bu[0].ravel(), bu[1].ravel()
+    if has_dx:
+        b = f64(bounds.dx)
+        lb[o_dx:o_du], ub[o_dx:o_du] = b[0].ravel(), b[1].ravel()
+    if has_du:
+        b = f64(bounds.du)
+        lb[o_du:], ub[o_du:] = b[0].ravel(), b[1].ravel()
+    w = qp_box_eq_solve(H, f, E, d, lb, ub, rho=10.0, iters=iters,
+                        tol=1e-12)
+    return w[:nx].reshape(T + 1, n), w[nx:nx + nu].reshape(T, m)

@@ -46,12 +46,7 @@ class BoxBounds(NamedTuple):
 class AdmmSolution(NamedTuple):
     x_trj: Array          # (T+1, n) — augmented state if Δu mode
     u_trj: Array          # (T, m)
-    # Feedback gains of the FINAL ADMM sweep.  Contract: only K/k are
-    # guaranteed; on the Pallas whole-loop backend the value-function
-    # fields gains.P/gains.p are returned ZEROED (the kernel never
-    # materializes them — downstream consumers use K/k only).  Read P/p
-    # from a "scan"/"assoc" backend solve if you need the Riccati value
-    # function.
+    # Feedback gains and value function of the FINAL ADMM sweep.
     gains: lqr_ops.LqrGains
     r_primal: Array       # final primal residual (inf-norm)
     r_dual: Array         # final dual residual  (inf-norm)
@@ -168,6 +163,38 @@ def _stage_values(prob, x_trj, u_trj, n_phys, idx_w) -> _SVals:
     return _SVals(x=xs, u=u_trj, dx=dx, du=du)
 
 
+def kernel_unsupported(bounds: BoxBounds, n_phys: int, n: int, m: int,
+                       idx_w, parallel: bool, platform: str) -> Optional[str]:
+    """Why the whole-loop GPU kernel (ops/pallas_admm.py) cannot run this
+    problem, or None when it can.  The rule:
+
+    * the platform is a GPU — the kernel is compiled by Triton for the card;
+      on the CPU there is no kernel, and XLA's loops are the program;
+    * ``parallel`` is off — the associative-scan sweeps stay in XLA;
+    * at least one bound kind is enabled (no bounds is plain TV-LQR);
+    * n and m are at most ``pallas_admm.MAX_DIM`` (each step keeps a few
+      (n, n) tiles in registers);
+    * du bounds use the augmentation layout the solver builds: a concrete
+      (not traced) ``idx_w == arange(n_phys, n)`` with n - n_phys == m.
+    """
+    from .pallas_admm import MAX_DIM
+    if platform != "gpu":
+        return f"the kernel runs only on a GPU, not on {platform!r}"
+    if parallel:
+        return "parallel (associative-scan) sweeps run in XLA"
+    if all(b is None for b in bounds):
+        return "no bound kind is enabled"
+    if max(n, m) > MAX_DIM:
+        return f"n={n}, m={m} exceed the kernel's width {MAX_DIM}"
+    if bounds.du is not None:
+        if isinstance(idx_w, jax.core.Tracer):
+            return "du bounds with a traced idx_w"
+        if (idx_w is None or n - n_phys != m or not np.array_equal(
+                np.asarray(idx_w), np.arange(n_phys, n))):
+            return "du bounds need idx_w == arange(n_phys, n)"
+    return None
+
+
 def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem,
                       bounds: BoxBounds,
                       n_phys: int,
@@ -175,9 +202,8 @@ def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem,
                       rho: float = 1.0,
                       iters: int = 60,
                       parallel: bool = False,
-                      backend: str = "scan",
                       over_relax: float = 1.0,
-                      factored: bool = True) -> AdmmSolution:
+                      kernel: Optional[bool] = None) -> AdmmSolution:
     """Solve the boxed TV-LQR QP.  ``prob`` may be Δu-augmented (then
     ``idx_w`` points at the prev-input block and ``n_phys`` < n).
 
@@ -188,89 +214,116 @@ def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem,
     ``over_relax`` in [1, 2): standard ADMM over-relaxation — the z/y updates
     see s_hat = a*s + (1-a)*z_prev instead of s (Boyd et al. §3.4.3).  a=1.6
     typically halves the sweeps needed for a given residual; a=1.0 recovers
-    plain ADMM exactly.  Each Riccati sweep is a serial scan over the
-    horizon, so on TPU fewer sweeps is a direct latency win for the hot
-    trajectory-QP phase.
+    plain ADMM exactly.  Each sweep is serial over the horizon, so fewer
+    sweeps is a direct latency win for the trajectory-QP phase.
+
+    This is the one place that picks the implementation.  ``kernel=None``
+    runs the whole-loop GPU kernel (ops/pallas_admm.py) wherever
+    :func:`kernel_unsupported` allows it and XLA's loops elsewhere;
+    ``kernel=True`` demands the kernel and raises where it cannot run;
+    ``kernel=False`` forces the XLA loops.
     """
     T, n, m = prob.B.shape
     f32 = prob.A.dtype
 
     # Degenerate all-None bounds: the QP is the unconstrained TV-LQR.
     if all(b is None for b in bounds):
-        x_trj, u_trj, gains = lqr_ops.lqr_solve(prob, parallel=parallel,
-                                                backend=backend)
+        if kernel:
+            raise ValueError("ADMM kernel requested, but no bound kind is "
+                             "enabled")
+        x_trj, u_trj, gains = lqr_ops.lqr_solve(prob, parallel=parallel)
         zero = jnp.zeros((), f32)
         return AdmmSolution(x_trj=x_trj, u_trj=u_trj, gains=gains,
                             r_primal=zero, r_dual=zero)
 
-    def clip_or(s, b, default):
-        return s if b is None else jnp.clip(s, b[0], b[1])
+    why_not = kernel_unsupported(bounds, n_phys, n, m, idx_w, parallel,
+                                 jax.default_backend())
+    if kernel and why_not is not None:
+        raise ValueError(f"ADMM kernel requested, but {why_not}")
+    if kernel is None:
+        kernel = why_not is None
+    if kernel:
+        return solve_boxed_tvlqr_kernel(prob, bounds, n_phys, idx_w, rho,
+                                        iters, over_relax)
+    return _solve_boxed_xla(prob, bounds, n_phys, idx_w, rho, iters,
+                            parallel, over_relax)
 
-    def zeros_like_svals():
-        return _SVals(x=jnp.zeros((T + 1, n_phys), f32),
-                      u=jnp.zeros((T, m), f32),
-                      dx=jnp.zeros((T, n_phys), f32),
-                      du=jnp.zeros((T, m), f32))
 
-    # Initialize z at the unconstrained solution projected onto the boxes.
-    x0_trj, u0_trj, gains0 = lqr_ops.lqr_solve(prob, parallel=parallel, backend=backend)
+def _clip_or(s, b):
+    return s if b is None else jnp.clip(s, b[0], b[1])
+
+
+def _admm_init(prob, bounds, n_phys, idx_w, parallel):
+    """z at the unconstrained solution projected onto the boxes, y = 0."""
+    T, n, m = prob.B.shape
+    f32 = prob.A.dtype
+    x0_trj, u0_trj, gains0 = lqr_ops.lqr_solve(prob, parallel=parallel)
     s0 = _stage_values(prob, x0_trj, u0_trj, n_phys, idx_w)
-    z0 = _SVals(
-        x=clip_or(s0.x, bounds.x, s0.x),
-        u=clip_or(s0.u, bounds.u, s0.u),
-        dx=clip_or(s0.dx, bounds.dx, s0.dx),
-        du=clip_or(s0.du, bounds.du, s0.du))
-    y0 = zeros_like_svals()
+    z0 = _SVals(*(_clip_or(getattr(s0, kd), getattr(bounds, kd))
+                  for kd in _SVals._fields))
+    y0 = _SVals(x=jnp.zeros((T + 1, n_phys), f32),
+                u=jnp.zeros((T, m), f32),
+                dx=jnp.zeros((T, n_phys), f32),
+                du=jnp.zeros((T, m), f32))
+    return z0, y0, (x0_trj, u0_trj, gains0)
 
-    # Hot path: the whole ADMM loop as ONE VMEM-resident Pallas kernel
-    # (ops/pallas_admm.py) — factorize once, sweep entirely on-chip.  All
-    # four bound kinds are supported; the du kind additionally needs the
-    # standard augmentation layout (w = x[n_phys:], the only one the solver
-    # builds) — anything else falls through to the XLA loops below.
-    if backend == "pallas" and not parallel:
-        du_ok = bounds.du is None
-        if not du_ok and idx_w is not None and n - n_phys == m:
-            try:
-                du_ok = bool(np.array_equal(np.asarray(idx_w),
-                                            np.arange(n_phys, n)))
-            except Exception:   # traced idx_w: cannot verify -> XLA path
-                du_ok = False
-        if du_ok:
-            from .pallas_admm import solve_boxed_tvlqr_pallas
-            x_trj, u_trj, K, k, z_d, zp_d = solve_boxed_tvlqr_pallas(
-                prob, bounds, z0, y0, n_phys=n_phys,
-                rho=rho, iters=iters, over_relax=over_relax)
-            gains = lqr_ops.LqrGains(
-                K=K, k=k,
-                P=jnp.zeros((T + 1, n, n), f32),
-                p=jnp.zeros((T + 1, n), f32))
-            s = _stage_values(prob, x_trj, u_trj, n_phys, idx_w)
-            r_primal = jnp.max(jnp.stack([
-                jnp.max(jnp.abs(getattr(s, kd) - z_d[kd])) for kd in z_d]))
-            r_dual = rho * jnp.max(jnp.stack([
-                jnp.max(jnp.abs(z_d[kd] - zp_d[kd])) for kd in z_d]))
-            return AdmmSolution(x_trj=x_trj, u_trj=u_trj, gains=gains,
-                                r_primal=r_primal, r_dual=r_dual)
 
-    a = jnp.asarray(over_relax, f32)
+def _residuals(prob, bounds, x_trj, u_trj, z, z_prev, rho, n_phys, idx_w):
+    """Primal/dual residuals over the ENABLED bound kinds only: a disabled
+    kind's z tracks the raw stage value (_clip_or's pass-through), so
+    including it would leak unconstrained solution movement into the dual
+    residual.  ``z``/``z_prev`` map kind -> array."""
+    s = _stage_values(prob, x_trj, u_trj, n_phys, idx_w)
+    enabled = [kd for kd in _SVals._fields if getattr(bounds, kd) is not None]
+    r_primal = jnp.max(jnp.stack([
+        jnp.max(jnp.abs(getattr(s, kd) - z[kd])) for kd in enabled]))
+    r_dual = jnp.max(jnp.stack([
+        rho * jnp.max(jnp.abs(z[kd] - z_prev[kd])) for kd in enabled]))
+    return r_primal, r_dual
+
+
+def solve_boxed_tvlqr_kernel(prob: lqr_ops.LqrProblem, bounds: BoxBounds,
+                             n_phys: int, idx_w: Optional[Array] = None,
+                             rho: float = 1.0, iters: int = 60,
+                             over_relax: float = 1.0,
+                             interpret: bool = False) -> AdmmSolution:
+    """The whole ADMM loop as one GPU kernel (ops/pallas_admm.py); same
+    initialization, sweeps and residuals as the XLA path.  Callers go
+    through :func:`solve_boxed_tvlqr`; ``interpret=True`` runs the kernel's
+    Pallas interpreter (tests on the CPU)."""
+    from .pallas_admm import boxed_admm_kernel
+    z0, y0, _ = _admm_init(prob, bounds, n_phys, idx_w, parallel=False)
+    # The quadratic penalties are sweep-invariant: add them once here.
+    pen = _penalized_problem(prob, bounds, y0, y0, rho, n_phys, idx_w)
+    x_trj, u_trj, K, k, P, p, z, zp = boxed_admm_kernel(
+        pen, prob, bounds, z0, y0, n_phys, rho, iters, over_relax,
+        interpret=interpret)
+    r_primal, r_dual = _residuals(prob, bounds, x_trj, u_trj, z, zp, rho,
+                                  n_phys, idx_w)
+    return AdmmSolution(x_trj=x_trj, u_trj=u_trj,
+                        gains=lqr_ops.LqrGains(K=K, k=k, P=P, p=p),
+                        r_primal=r_primal, r_dual=r_dual)
+
+
+def _solve_boxed_xla(prob, bounds, n_phys, idx_w, rho, iters, parallel,
+                     over_relax) -> AdmmSolution:
+    """The ADMM loop as XLA scans (the CPU path and the reference the
+    kernel is tested against)."""
+    z0, y0, init_sol = _admm_init(prob, bounds, n_phys, idx_w, parallel)
+    a = jnp.asarray(over_relax, prob.A.dtype)
 
     # The quadratic penalties are sweep-invariant, so the Riccati
     # factorization (K, H, G, P) is computed ONCE; each sweep re-solves only
     # the affine recursion over the z/y-dependent (q, r, qf).  The assoc
     # (parallel-in-time) backend keeps the generic full-solve path — its
     # point is O(log T) depth per sweep, which a sequential linear
-    # recursion would forfeit.  The pallas backend also keeps the full
-    # solve: its whole-recursion VMEM kernel per sweep (measured 2.0 ms for
-    # 12 sweeps on the planar-hand problem) beats the factored XLA scans
-    # (4.6 ms) — per-knot scan dispatch costs more than the extra math.
-    use_factored = factored and not parallel and backend not in (
-        "assoc", "pallas")
-    if use_factored:
+    # recursion would forfeit.
+    if not parallel:
         pen0 = _penalized_problem(prob, bounds, z0, y0, rho, n_phys, idx_w)
         fac = lqr_ops.riccati_factorize(pen0)
 
     def x_update(z, y):
-        if use_factored:
+        if not parallel:
             q, r, qf = _penalized_linear_terms(prob, bounds, z, y, rho,
                                                n_phys, idx_w)
             pen = pen0._replace(q=q, r=r, qf=qf)
@@ -278,7 +331,7 @@ def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem,
             x_trj, u_trj = lqr_ops.lqr_rollout_linear(pen, gains)
             return x_trj, u_trj, gains
         pen = _penalized_problem(prob, bounds, z, y, rho, n_phys, idx_w)
-        return lqr_ops.lqr_solve(pen, parallel=parallel, backend=backend)
+        return lqr_ops.lqr_solve(pen, parallel=True)
 
     def sweep(carry, _):
         z, y, _, _ = carry
@@ -287,27 +340,14 @@ def solve_boxed_tvlqr(prob: lqr_ops.LqrProblem,
         # Over-relaxation: blend past z into the consensus target.
         sh = jax.tree.map(lambda ss, zz: a * ss + (1.0 - a) * zz, s, z)
         sy = jax.tree.map(lambda a_, b: a_ + b, sh, y)
-        z_new = _SVals(
-            x=clip_or(sy.x, bounds.x, s.x),
-            u=clip_or(sy.u, bounds.u, s.u),
-            dx=clip_or(sy.dx, bounds.dx, s.dx),
-            du=clip_or(sy.du, bounds.du, s.du))
+        z_new = _SVals(*(_clip_or(getattr(sy, kd), getattr(bounds, kd))
+                         for kd in _SVals._fields))
         y_new = jax.tree.map(lambda yy, ss, zz: yy + ss - zz, y, sh, z_new)
         return (z_new, y_new, (x_trj, u_trj, gains), z), None
 
-    init_sol = (x0_trj, u0_trj, gains0)
     (z, y, (x_trj, u_trj, gains), z_prev), _ = jax.lax.scan(
         sweep, (z0, y0, init_sol, z0), None, length=iters)
-
-    # Residuals over the ENABLED bound kinds only: a disabled kind's z
-    # tracks the raw stage value (clip_or's default branch), so including it
-    # would leak unconstrained solution movement into the dual residual.
-    s = _stage_values(prob, x_trj, u_trj, n_phys, idx_w)
-    enabled = [kd for kd in _SVals._fields if getattr(bounds, kd) is not None]
-    r_primal = jnp.max(jnp.stack([
-        jnp.max(jnp.abs(getattr(s, kd) - getattr(z, kd))) for kd in enabled]))
-    r_dual = jnp.max(jnp.stack([
-        rho * jnp.max(jnp.abs(getattr(z, kd) - getattr(z_prev, kd)))
-        for kd in enabled]))
+    r_primal, r_dual = _residuals(prob, bounds, x_trj, u_trj, z._asdict(),
+                                  z_prev._asdict(), rho, n_phys, idx_w)
     return AdmmSolution(x_trj=x_trj, u_trj=u_trj, gains=gains,
                         r_primal=r_primal, r_dual=r_dual)

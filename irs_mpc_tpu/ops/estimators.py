@@ -1,4 +1,4 @@
-"""Smoothed time-varying linearization estimators, TPU-native.
+"""Smoothed time-varying linearization estimators.
 
 The reference implements these twice — per-knot python loops inside optimizer
 subclasses (``irs_lqr/irs_lqr_{exact,first_order,zero_order}.py``) and as
@@ -145,56 +145,15 @@ def fit_from_moments(G: Array, M: Array, damp: float = 0.0) -> Array:
     return solve_spd(Gd + eps * jnp.eye(p, dtype=G.dtype), M).T
 
 
-# ---------------------------------------------------------------------------
-# Flat 8-aligned batch evaluation (TPU layout discipline)
-#
-# Two measured XLA:TPU pathologies shape how the sweeps below call the
-# system's heavy operators (step_batch / jacobian_xu_batch):
-#   * a vmapped fixed-iteration solver scan with a batch NOT divisible by 8
-#     (the sublane width) runs ~20x slower than the aligned size one row up
-#     (measured: 1500 contact QPs 46 ms vs 1504 QPs 2.4 ms on v5e);
-#   * NESTED batch dims are pathological regardless of alignment — a
-#     (T, S)-vmapped PDIP scan never collapses to the fast flat layout
-#     (measured: (30,56)=1680 rows 42 ms nested vs 2.3 ms flat-aligned).
-# So every heavy sweep flattens (knots x samples) to ONE leading batch and
-# pads it to a multiple of 8 with repeated last rows; padded rows are
-# discarded after the call.  Per-row results are unchanged — rows are
-# independent under vmap — so this is a pure layout transform.
-# ---------------------------------------------------------------------------
-
-_SUBLANE = 8
-
-
-def _pad_rows(a: Array, pad: int) -> Array:
-    if pad == 0:
-        return a
-    return jnp.concatenate(
-        [a, jnp.broadcast_to(a[-1:], (pad,) + a.shape[1:])], axis=0)
-
-
-def aligned_batch_call(fn, *args):
-    """Call ``fn`` (a per-row batched operator) with the leading batch padded
-    up to a multiple of 8; returns outputs with the padding sliced off.
-    Accepts a single array or a tuple/list return."""
-    B = args[0].shape[0]
-    pad = (-B) % _SUBLANE
-    out = fn(*(_pad_rows(a, pad) for a in args))
-    if pad == 0:
-        return out
-    if isinstance(out, (tuple, list)):
-        return type(out)(o[:B] for o in out)
-    return out[:B]
-
-
 def _flat_call(fn, *args_ts):
-    """Flatten (T, S, ...) leading dims to one aligned batch, call, restore."""
+    """Call a per-row batched operator on (T, S, ...) inputs as ONE flat
+    (T*S)-row batch and restore the (T, S) leading dims on every output
+    leaf (array, tuple, NamedTuple or any other pytree).  Rows are
+    independent under vmap, so this is a pure layout transform."""
     T, S = args_ts[0].shape[:2]
     flat = lambda a: a.reshape((T * S,) + a.shape[2:])
-    out = aligned_batch_call(fn, *(flat(a) for a in args_ts))
-    unflat = lambda o: o.reshape((T, S) + o.shape[1:])
-    if isinstance(out, (tuple, list)):
-        return type(out)(unflat(o) for o in out)
-    return unflat(out)
+    out = fn(*(flat(a) for a in args_ts))
+    return jax.tree.map(lambda o: o.reshape((T, S) + o.shape[1:]), out)
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +162,7 @@ def _flat_call(fn, *args_ts):
 
 def _estimate_flat(system: System, mode: str, x_trj, u_trj, key, it,
                    cfg: SmoothingConfig):
-    """Generic estimation sweep over all knots as ONE flat aligned batch.
+    """Generic estimation sweep over all knots as ONE flat batch.
 
     Semantics per mode (names and behavior match the reference's
     ``gradient_mode`` strings):
@@ -223,16 +182,16 @@ def _estimate_flat(system: System, mode: str, x_trj, u_trj, key, it,
 
     Sampling is bitwise-identical to a per-knot formulation (one key split
     per knot, same draw shapes/order); the flattening is a pure layout
-    transform (see the module-top TPU layout note).  Returns (AB (T,n,n+m),
+    transform (see ``_flat_call``).  Returns (AB (T,n,n+m),
     f_nom (T,n)).
     """
     T = u_trj.shape[0]
     n = system.dim_x
     x_nom = x_trj[:-1]
-    f_nom = aligned_batch_call(system.step_batch, x_nom, u_trj)
+    f_nom = system.step_batch(x_nom, u_trj)
 
     if mode == "exact":
-        AB = aligned_batch_call(system.jacobian_xu_batch, x_nom, u_trj)
+        AB = system.jacobian_xu_batch(x_nom, u_trj)
         return AB, f_nom
 
     sx, su = cfg.stds(it, system.dim_x, system.dim_u)
@@ -267,8 +226,7 @@ def _estimate_flat(system: System, mode: str, x_trj, u_trj, key, it,
             ABj = _flat_call(system.jacobian_xu_batch, xb, ub)
             A_hat = jnp.mean(ABj, axis=1)[:, :, :n]
         else:
-            A_hat = aligned_batch_call(
-                system.jacobian_xu_batch, x_nom, u_trj)[:, :, :n]
+            A_hat = system.jacobian_xu_batch(x_nom, u_trj)[:, :, :n]
         AB = jnp.concatenate([A_hat, B_hat], axis=2)
     else:                                             # zero_order_AB
         fd = _flat_call(system.step_batch, xp, up)
@@ -293,17 +251,29 @@ def _estimate_fused(system: System, mode: str, x_trj, u_trj, key, it,
     (``decouple_AB``), and the Jacobian's implicit-function solve is the
     single most expensive node of the sweep.
     """
-    T = u_trj.shape[0]
-    n, m = system.dim_x, system.dim_u
-    sx, su = cfg.stds(it, n, m)
-    keys = jax.random.split(key, T)
-
-    def draw(k):
-        return _sample_perturbations(k, sx, su, cfg.num_samples)
-
-    dx, du = jax.vmap(draw)(keys)                     # (T, S, n), (T, S, m)
+    dx, du = draw_perturbations(system, x_trj, u_trj, key, it, cfg)
     dx_arg = None if mode == "zero_order_B" else dx
     f_nom, fd = system.est_sweep_fn(x_trj[:-1], u_trj, dx_arg, du)
+    return fit_sweep(system, mode, x_trj, u_trj, dx, du, f_nom, fd, cfg,
+                     need_A)
+
+
+def draw_perturbations(system: System, x_trj, u_trj, key, it,
+                       cfg: SmoothingConfig):
+    """The fused sweep's (T, S, n) / (T, S, m) sample perturbations: one
+    key split per knot, the same draws as the per-knot path."""
+    sx, su = cfg.stds(it, system.dim_x, system.dim_u)
+    keys = jax.random.split(key, u_trj.shape[0])
+    return jax.vmap(
+        lambda k: _sample_perturbations(k, sx, su, cfg.num_samples))(keys)
+
+
+def fit_sweep(system: System, mode: str, x_trj, u_trj, dx, du, f_nom, fd,
+              cfg: SmoothingConfig, need_A: bool = True):
+    """The per-knot least-squares fits of a fused sweep's outputs
+    (``est_sweep_fn`` -> ``f_nom``, ``fd``).  Returns (tv, f_nom)."""
+    T = u_trj.shape[0]
+    n = system.dim_x
     D = fd - f_nom[:, None, :]                        # (T, S, n)
 
     if mode == "zero_order":
@@ -321,8 +291,7 @@ def _estimate_fused(system: System, mode: str, x_trj, u_trj, key, it,
                                  xp, u_trj[:, None] + du)
                 A_hat = jnp.mean(ABj, axis=1)[:, :, :n]
             else:
-                A_hat = aligned_batch_call(
-                    system.jacobian_xu_batch, x_trj[:-1], u_trj)[:, :, :n]
+                A_hat = system.jacobian_xu_batch(x_trj[:-1], u_trj)[:, :, :n]
         else:
             A_hat = jnp.zeros((T, n, n), D.dtype)
         AB = jnp.concatenate([A_hat, B_hat], axis=2)
@@ -395,7 +364,7 @@ def decouple_AB(tv: TvLinearization, indices_u_into_x: Array,
     B = tv.B.at[:, indices_u_into_x, :].set(
         jnp.broadcast_to(jnp.eye(m, dtype=tv.B.dtype), (T, m, m)))
     if f_nom is None:
-        f_nom = aligned_batch_call(system.step_batch, x_trj[:-1], u_trj)
+        f_nom = system.step_batch(x_trj[:-1], u_trj)
     c = f_nom - jnp.einsum("tij,tj->ti", A, x_trj[:-1]) \
         - jnp.einsum("tij,tj->ti", B, u_trj)
     return TvLinearization(A=A, B=B, c=c)

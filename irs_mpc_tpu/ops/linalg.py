@@ -1,12 +1,11 @@
-"""Fast small-matrix linear algebra for TPU.
+"""Small-matrix linear algebra as unrolled elementwise code.
 
-XLA's batched ``jnp.linalg.solve`` routes tiny systems through a generic
-LAPACK-style path that is ~6x slower on TPU than an unrolled elimination
-(measured: 2048 x 8x8 solves, 4.9 ms vs 0.81 ms on v5e).  Every linear
-solve in this framework is small (n <= ~50: Riccati H, contact-QP KKT,
-least-squares Gram matrices), so we unroll Gauss-Jordan at trace time —
-pure elementwise/broadcast ops the TPU VPU eats directly, fully vmappable
-and differentiable.
+Every linear solve in this framework is small (n <= ~50: Riccati H,
+contact-QP KKT, least-squares Gram matrices), so Gauss-Jordan is unrolled
+at trace time into pure elementwise/broadcast ops that XLA fuses into the
+surrounding computation, fully vmappable and differentiable, instead of a
+generic batched ``jnp.linalg.solve`` library call.  Whether batched
+Cholesky is faster on the GPU at n = 3..16 is not measured yet.
 
 No pivoting: callers pass SPD or regularized diagonally-dominant systems
 (Riccati H = R + B'PB, PDIP H = P + C'WC + eps I, Gram + ridge).  For

@@ -1,4 +1,4 @@
-"""Time-varying LQR backward/forward passes, TPU-native.
+"""Time-varying LQR backward/forward passes.
 
 Replaces the reference's per-call dense QP construction through Drake
 MathematicalProgram + OSQP/Gurobi (``/root/reference/irs_lqr/tv_lqr.py:30-145``)
@@ -272,22 +272,13 @@ def lqr_rollout_linear(prob: LqrProblem, gains: LqrGains):
     return x_trj, us
 
 
-def lqr_solve(prob: LqrProblem, parallel: bool = False,
-              backend: str = "scan"):
+def lqr_solve(prob: LqrProblem, parallel: bool = False):
     """Solve the unconstrained affine-quadratic problem exactly.
 
-    backend: "scan" (sequential), "assoc" (associative scan), or "pallas"
-    (whole-recursion VMEM kernel, TPU only).  ``parallel=True`` is a legacy
-    alias for backend="assoc".  Returns (x_trj, u_trj, gains)."""
-    if parallel:
-        backend = "assoc"
-    if backend == "assoc":
-        gains = riccati_backward_assoc(prob)
-    elif backend == "pallas":
-        from .pallas_riccati import riccati_backward_pallas
-        gains = riccati_backward_pallas(prob)
-    else:
-        gains = riccati_backward(prob)
+    ``parallel=True`` uses the associative-scan backward pass, else the
+    sequential scan.  Returns (x_trj, u_trj, gains)."""
+    gains = (riccati_backward_assoc(prob) if parallel
+             else riccati_backward(prob))
     x_trj, u_trj = lqr_rollout_linear(prob, gains)
     return x_trj, u_trj, gains
 

@@ -3,19 +3,22 @@
 The reference's multi-process story is hand-rolled: spawn N worker
 processes, connect ZMQ sockets, and hit Enter when ready
 (``irs_lqr_quasistatic.py:117-129``); a lost worker deadlocks the gather
-loop (SURVEY §5.3).  On TPU pods the JAX multi-host runtime replaces all of
-it: every host runs the same SPMD program, collectives ride ICI/DCN, and
-failure semantics are the runtime's (a dead host fails the step loudly
+loop (SURVEY §5.3).  On a GPU cluster the JAX multi-process runtime
+replaces all of it: every process runs the same SPMD program, collectives
+go through NCCL (NVLink within a host, the network across hosts), and
+failure semantics are the runtime's (a dead process fails the step loudly
 instead of deadlocking silently).
 
-Usage (same script on every host):
+Usage (same script in every process, one process per host or per GPU):
 
     from irs_mpc_tpu.parallel import multihost
-    multihost.initialize()                     # env-driven (GKE/TPU VM)
-    mesh = multihost.pod_mesh(sample_axis_per_host=4)
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
+    mesh = multihost.pod_mesh(knot_shards=1)
     params.mesh = mesh
 
-On a single host this is a no-op and falls back to the local devices.
+With no arguments, ``initialize`` relies on a cluster launcher that JAX
+detects (Slurm, Open MPI); on a single host it is a no-op and the mesh
+covers the local devices.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed (no-op if single-process or already up).
 
-    With no arguments, relies on the TPU environment metadata (the standard
-    path on TPU VMs/GKE).
+    With no arguments, relies on the cluster launcher's environment (Slurm,
+    Open MPI) that ``jax.distributed`` auto-detects.
     """
     # NOTE: do NOT probe jax.process_count() here — it initializes the
     # backend, after which jax.distributed.initialize is forever too late.
@@ -51,18 +54,18 @@ def initialize(coordinator_address: Optional[str] = None,
             # The caller named a coordinator: failing to reach it is a real
             # error, not a single-process environment.
             raise
-        # Auto-detect mode on a single-process box (e.g. the 1-chip dev
-        # machine): run single-process.
+        # No launcher detected (e.g. a single-GPU workstation): run
+        # single-process.
         pass
 
 
 def pod_mesh(knot_shards: int = 1) -> "jax.sharding.Mesh":
     """Build the (sample, knot) mesh over ALL devices in the job.
 
-    Layout rule (scaling-book style): the sample axis — which carries the
-    psum of regression moments every sweep — is laid out within hosts first
-    so its collective rides ICI; the knot axis (touched only by the final
-    gather) spans hosts/DCN.
+    Layout rule: the sample axis — which carries the psum of regression
+    moments every sweep — is laid out within hosts first so its collective
+    stays on NVLink; the knot axis (touched only by the final gather) spans
+    hosts.
     """
     devices = np.asarray(jax.devices())
     n = devices.size

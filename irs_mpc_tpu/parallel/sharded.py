@@ -13,8 +13,9 @@ under ``shard_map`` on a ``jax.sharding.Mesh``:
                     distribution here at all).
 
 Per-sample regression moments (G = S'S, M = S'D) are reduced with ``psum``
-over the ``sample`` axis — on hardware this rides ICI, and across hosts DCN
-only ever sees the tiny (p,p)/(p,n) moment tensors per knot (SURVEY §5.8).
+over the ``sample`` axis — on GPUs this rides NVLink (NCCL), and across
+hosts the network only ever sees the tiny (p,p)/(p,n) moment tensors per
+knot (SURVEY §5.8).
 No sockets, no pickling, no lost-worker deadlock: failure semantics are
 XLA's, and determinism is by construction (keys are split per (knot, shard)).
 """
@@ -96,7 +97,7 @@ def sharded_estimate_tv_matrices(
                     "zero_order_AB"):
         raise ValueError(f"unknown mode {mode!r}")
 
-    from ..ops.estimators import _flat_call, aligned_batch_call
+    from ..ops.estimators import _flat_call
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(P("knot"), P("knot"), P("knot")),
@@ -105,11 +106,9 @@ def sharded_estimate_tv_matrices(
         """Per-device sweep over the local knot shard.
 
         The heavy operators (step_batch / jacobian_xu_batch) run over ONE
-        flat sublane-aligned (T_local * S_local) batch — a nested
-        (knot, sample) vmap of a fixed-iteration solver scan is ~20x
-        slower on XLA:TPU regardless of alignment (see ops/estimators.py
-        module note).  Per-knot least-squares moments are then reduced
-        with one psum over the sample axis, exactly as before.
+        flat (T_local * S_local) batch, as in ops/estimators.py.  Per-knot
+        least-squares moments are then reduced with one psum over the
+        sample axis.
         """
         shard_id = jax.lax.axis_index("sample")
 
@@ -120,7 +119,7 @@ def sharded_estimate_tv_matrices(
                     su * jax.random.normal(ku, (S_local, m)))
 
         if mode == "exact":
-            return aligned_batch_call(system.jacobian_xu_batch, x_k, u_k)
+            return system.jacobian_xu_batch(x_k, u_k)
 
         dx, du = jax.vmap(draw)(keys_k)          # (T_loc, S_loc, n/m)
         # Projection applies only where the reference estimators use it
@@ -138,7 +137,7 @@ def sharded_estimate_tv_matrices(
                 / (S_local * n_sample)
             return AB
 
-        f0 = aligned_batch_call(system.step_batch, x_k, u_k)
+        f0 = system.step_batch(x_k, u_k)
         if mode == "zero_order":
             if system.projection is not None:
                 dx, du = xp - x_k[:, None], up - u_k[:, None]
@@ -165,8 +164,7 @@ def sharded_estimate_tv_matrices(
                     jnp.sum(ABj[:, :, :, :n], axis=1), "sample") \
                     / (S_local * n_sample)
             else:
-                A_hat = aligned_batch_call(
-                    system.jacobian_xu_batch, x_k, u_k)[:, :, :n]
+                A_hat = system.jacobian_xu_batch(x_k, u_k)[:, :, :n]
             return jnp.concatenate([A_hat, B_hat], axis=2)
 
         # zero_order_AB
@@ -180,7 +178,7 @@ def sharded_estimate_tv_matrices(
 
     AB = run(x_pad, u_pad, keys)[:T]
     A, B = AB[:, :, :n], AB[:, :, n:]
-    f_nom = aligned_batch_call(system.step_batch, x_trj[:-1], u_trj)
+    f_nom = system.step_batch(x_trj[:-1], u_trj)
     c = f_nom - jnp.einsum("tij,tj->ti", A, x_trj[:-1]) \
         - jnp.einsum("tij,tj->ti", B, u_trj)
     return TvLinearization(A=A, B=B, c=c)

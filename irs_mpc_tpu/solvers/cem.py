@@ -45,7 +45,7 @@ class CemParams:
     report_final_cost_with_Q: bool = True
 
     # ---- search upgrades (all default-off: vanilla reference CEM) ----
-    # On-TPU populations are nearly free, but vanilla CEM still wastes the
+    # On-device populations are nearly free, but vanilla CEM still wastes the
     # budget on long horizons: per-knot white noise almost never produces a
     # coherent 200-knot maneuver, and the elite refit collapses std before
     # the search finds one.  These four knobs are the standard fixes
@@ -197,27 +197,8 @@ class CrossEntropyMethod:
             x = self.system.rollout(self.x0, u)
             return self._cost(x, u)
 
-        # NOTE (r5 measured): scoring the population through the lane-
-        # batched Pallas kernel (System.rollout_batch on a
-        # pallas_batch=True system) degrades contact-CEM quality
-        # (box_pushing 47.2 -> 57.0, box_pivoting 134.3 -> 260.7): cold
-        # kernel lanes score candidates while the accepted mean rolls the
-        # warm XLA chain, and the mismatch corrupts elite selection.  CEM
-        # therefore keeps the warm vmapped chains.
-        #
-        # The scoring batch is padded to the 8-row sublane (repeated last
-        # candidate, scores sliced off) — a misaligned vmapped solver
-        # scan is ~20x slower on XLA:TPU (ops/estimators.py module note);
-        # small populations like box_pushing_cem's 100 hit this.  TPU-only
-        # (the pathology is an XLA:TPU layout artifact; on CPU the extra
-        # rollouts would be pure waste).
-        B_cand = cand.shape[0]
-        pad = (-B_cand) % 8 if jax.default_backend() == "tpu" else 0
-        cand_p = (jnp.concatenate(
-            [cand, jnp.broadcast_to(cand[-1:], (pad,) + cand.shape[1:])],
-            axis=0) if pad else cand)
         with jax.default_matmul_precision("highest"):
-            costs = jax.vmap(eval_one)(cand_p)[:B_cand]
+            costs = jax.vmap(eval_one)(cand)
         # Diverged rollouts (NaN/inf cost) must never become elites.
         costs = jnp.where(jnp.isfinite(costs), costs, jnp.inf)
         # lowest-cost elites

@@ -92,11 +92,13 @@ class IrsMpcParams:
     # trajectory, so the accepted iterate never regresses).
     line_search_alphas: tuple = (1.0, 0.6, 0.3, 0.1, 0.03, 0.0)
     parallel_riccati: bool = False       # associative-scan backward pass
-    # "auto" = Pallas whole-recursion kernel on TPU, lax.scan elsewhere.
-    riccati_backend: str = "auto"        # "auto"|"scan"|"assoc"|"pallas"
     admm_iters: int = 60                 # boxed-QP iterations (resolve mode)
     admm_rho: float = 1.0
     admm_over_relax: float = 1.0         # 1.6 ~halves admm_iters (Boyd §3.4.3)
+    # Boxed-QP implementation: None = the whole-loop GPU kernel wherever
+    # ops/admm.kernel_unsupported allows it, XLA loops elsewhere; True
+    # demands the kernel (raises where it cannot run); False forces XLA.
+    admm_kernel: Optional[bool] = None
     seed: int = 0
     # Optional jax.sharding.Mesh with ("sample", "knot") axes: shards the
     # Monte-Carlo estimation across devices (replaces the reference's ZMQ
@@ -172,14 +174,6 @@ class IrsMpc:
         self.cost_best = self.cost
         self.iter = 1
         self.start_time = time.time()
-
-        # Resolve "auto" locally — never mutate the caller's params (one
-        # IrsMpcParams may be reused across solvers/backends).
-        self._riccati_backend = p.riccati_backend
-        if self._riccati_backend == "auto":
-            self._riccati_backend = ("pallas"
-                                     if jax.default_backend() == "tpu"
-                                     else "scan")
 
         self._iteration_jit = jax.jit(self._iteration)
 
@@ -306,10 +300,11 @@ class IrsMpc:
         """One smoothing + descent iteration (fully jitted).
 
         Wrapped in ``default_matmul_precision('highest')``: the Riccati and
-        least-squares matrices are tiny but ill-conditioned, and the TPU MXU's
-        default bf16 accumulation visibly degrades convergence (observed:
-        pendulum 349.5 -> 420.9 without this).  The Monte-Carlo rollout bulk
-        is elementwise VPU work, so full-precision matmuls cost ~nothing.
+        least-squares matrices are tiny but ill-conditioned, and a GPU's
+        default float32 matmul may run in TF32 (about three decimal digits),
+        which degrades convergence (observed with reduced-precision matmuls:
+        pendulum 349.5 -> 420.9).  The Monte-Carlo rollout bulk is
+        elementwise work, so full-precision matmuls cost ~nothing.
         """
         with jax.default_matmul_precision("highest"):
             return self._iteration_impl(x_trj, u_trj, key, it)
@@ -393,7 +388,7 @@ class IrsMpc:
 
         bounds = self._box_bounds(x_trj)
         big = jnp.asarray(BOUND_BIG, f32)
-        idx_w = (jnp.arange(n, n_aug) if self._aug else None)
+        idx_w = (np.arange(n, n_aug) if self._aug else None)
 
         def mask_bounds(b, t, time_len):
             if b is None:
@@ -430,8 +425,7 @@ class IrsMpc:
             sol = admm_ops.solve_boxed_tvlqr(
                 prob_t, bounds_t, n_phys=n, idx_w=idx_w,
                 rho=p.admm_rho, iters=p.admm_iters,
-                over_relax=p.admm_over_relax,
-                backend=self._riccati_backend)
+                over_relax=p.admm_over_relax, kernel=p.admm_kernel)
             u = jnp.nan_to_num(sol.u_trj[t])
             if sys.step_ws_fn is not None:
                 x_next, ws = sys.step_ws_fn(x_cur, u, ws)
@@ -448,10 +442,36 @@ class IrsMpc:
         return x_new, us
 
     def _iteration_impl(self, x_trj, u_trj, key, it):
+        """sample -> estimate (A, B, c) -> trajectory QP -> line-searched
+        true-dynamics rollout; each phase under its own named scope."""
+        key, k_est = jax.random.split(key)
+        with jax.named_scope("estimation"):
+            tv = self._estimate(x_trj, u_trj, k_est, it)
+        prob = self._build_problem(tv, x_trj)
+
+        if self.params.forward_mode == "resolve":
+            x_new, us = self._resolve_forward(prob, x_trj, u_trj)
+            channels = self.eval_cost(x_new, us)
+            # No line search in resolve mode (reference semantics); fall back
+            # to the nominal only on numerical failure.
+            bad = ~jnp.isfinite(channels[0])
+            nominal = self.eval_cost(x_trj, u_trj)
+            x_new = jnp.where(bad, x_trj, x_new)
+            us = jnp.where(bad, u_trj, us)
+            cvec = jnp.where(bad, jnp.stack(nominal), jnp.stack(channels))
+            return x_new, us, key, cvec
+
+        with jax.named_scope("trajectory_qp"):
+            gains, z_plan, u_plan = self._plan(prob, x_trj)
+        with jax.named_scope("forward_rollout"):
+            x_new, us, cvec = self._line_search(x_trj, u_trj, gains, z_plan,
+                                                u_plan)
+        return x_new, us, key, cvec
+
+    def _estimate(self, x_trj, u_trj, k_est, it) -> TvLinearization:
+        """Smoothed time-varying linearization around the nominal."""
         p = self.params
         sys = self.system
-        key, k_est = jax.random.split(key)
-
         # The cheaper estimation surrogate is justified by Monte-Carlo noise
         # in the sample targets; "exact" mode has no sampling, so it always
         # linearizes the true system (reference: calc_AB_exact runs the full
@@ -474,41 +494,24 @@ class IrsMpc:
         if p.decouple_AB:
             tv = decouple_AB(tv, self.idx_u, x_trj, u_trj, sys,
                              f_nom=f_nom_est)
+        return tv
 
-        prob = self._build_problem(tv, x_trj)
-        n, m = sys.dim_x, sys.dim_u
-        n_aug = prob.A.shape[1]
-
-        if p.forward_mode == "resolve":
-            x_new, us = self._resolve_forward(prob, x_trj, u_trj)
-            channels = self.eval_cost(x_new, us)
-            # No line search in resolve mode (reference semantics); fall back
-            # to the nominal only on numerical failure.
-            bad = ~jnp.isfinite(channels[0])
-            nominal = self.eval_cost(x_trj, u_trj)
-            x_new = jnp.where(bad, x_trj, x_new)
-            us = jnp.where(bad, u_trj, us)
-            cvec = jnp.where(bad, jnp.stack(nominal), jnp.stack(channels))
-            return x_new, us, key, cvec
-
+    def _plan(self, prob, x_trj):
+        """Solve the trajectory QP: boxed ADMM when any bound is set, else
+        one Riccati pass.  Returns sanitized (gains, z_plan, u_plan)."""
+        p = self.params
+        n, m = self.system.dim_x, self.system.dim_u
         if self._has_bounds():
-            idx_w = (jnp.arange(n, n + m) if self._aug else None)
+            idx_w = (np.arange(n, n + m) if self._aug else None)
             sol = admm_ops.solve_boxed_tvlqr(
                 prob, self._box_bounds(x_trj), n_phys=n, idx_w=idx_w,
                 rho=p.admm_rho, iters=p.admm_iters,
                 over_relax=p.admm_over_relax,
-                parallel=p.parallel_riccati, backend=self._riccati_backend)
+                parallel=p.parallel_riccati, kernel=p.admm_kernel)
             gains, z_plan, u_plan = sol.gains, sol.x_trj, sol.u_trj
         else:
-            backend = "assoc" if p.parallel_riccati else self._riccati_backend
-            if backend == "assoc":
-                gains = lqr_ops.riccati_backward_assoc(prob)
-            elif backend == "pallas":
-                from ..ops.pallas_riccati import riccati_backward_pallas
-                gains = riccati_backward_pallas(prob)
-            else:
-                gains = lqr_ops.riccati_backward(prob)
-            z_plan, u_plan = lqr_ops.lqr_rollout_linear(prob, gains)
+            z_plan, u_plan, gains = lqr_ops.lqr_solve(
+                prob, parallel=p.parallel_riccati)
 
         # Sanitize: if a degenerate estimate produced non-finite gains or
         # plans, zero them so the alpha=0 line-search branch still exactly
@@ -516,19 +519,23 @@ class IrsMpc:
         # poison every branch).
         gains = gains._replace(K=jnp.nan_to_num(gains.K),
                                k=jnp.nan_to_num(gains.k))
-        z_plan = jnp.nan_to_num(z_plan)
-        u_plan = jnp.nan_to_num(u_plan)
+        return gains, jnp.nan_to_num(z_plan), jnp.nan_to_num(u_plan)
 
-        # Forward pass: roll the TRUE nonlinear dynamics under affine feedback
-        # around the planned trajectory,
-        #     u_t = u*_t - K_t (z_t - z*_t),
-        # clipped to the input bounds.  At full step this is exactly
-        # u = -(K z + k), which equals the reference's per-knot
-        # shrinking-horizon QP chain (Bellman).  A vmapped line search over
-        # step sizes alpha blends plan toward nominal — alpha=0 reproduces
-        # the nominal trajectory exactly, so the accepted cost never
-        # increases (the reference has no such safeguard and its exact mode
-        # can blow up outside the QP's feasible region).
+    def _line_search(self, x_trj, u_trj, gains, z_plan, u_plan):
+        """Forward pass: roll the TRUE nonlinear dynamics under affine
+        feedback around the planned trajectory,
+            u_t = u*_t - K_t (z_t - z*_t),
+        clipped to the input bounds.  At full step this is exactly
+        u = -(K z + k), which equals the reference's per-knot
+        shrinking-horizon QP chain (Bellman).  A vmapped line search over
+        step sizes alpha blends plan toward nominal — alpha=0 reproduces
+        the nominal trajectory exactly, so the accepted cost never
+        increases (the reference has no such safeguard and its exact mode
+        can blow up outside the QP's feasible region).  Returns the
+        accepted (x_new, u_new, cost channels)."""
+        p = self.params
+        sys = self.system
+        m = sys.dim_u
         lb, ub = self._u_bounds_for_rollout(x_trj)
         has_rel = p.u_bounds_rel is not None
         if has_rel:
@@ -578,57 +585,11 @@ class IrsMpc:
             return x_new, us, jnp.stack(channels)
 
         alphas = jnp.asarray(p.line_search_alphas, jnp.float32)
-        # The whole-chain kernel carries the alphas on the sublane axis
-        # (pallas_rollout._B lanes); wider line searches keep the vmapped
-        # scan.  Gate on the kernel's own constant so the two can't desync.
-        if sys.ls_rollout_fn is not None and self._riccati_backend == "pallas":
-            from ..models.contact import pallas_rollout as _plr
-            _lanes_ok = len(p.line_search_alphas) <= _plr._B
-        else:
-            _lanes_ok = False
-        if _lanes_ok:
-            # Whole-chain Pallas rollout: every line-search lane, every
-            # knot, geometry + warm contact QP, in one VMEM kernel
-            # (models/contact/pallas_rollout.py).  Semantically identical
-            # to the vmapped scan below.
-            a3 = alphas[:, None, None]
-            z_ref_all = z_nom[None] + a3 * (z_plan[None, :-1] - z_nom[None])
-            u_ref_all = u_trj[None] + a3 * (u_plan[None] - u_trj[None])
-            xs_all, us_all = sys.ls_rollout_fn(
-                x_trj[0], u_prev0, gains.K,
-                z_ref_all[..., :n],
-                z_ref_all[..., n:] if self._aug else None,
-                u_ref_all, lb, ub,
-                rel_lb if has_rel else None,
-                rel_ub if has_rel else None)
-            costs_all = jax.vmap(
-                lambda xx, uu: jnp.stack(self.eval_cost(xx, uu)))(
-                    xs_all, us_all)
-        else:
-            # Pad the lane axis to the 8-row sublane: a vmapped solver scan
-            # with a misaligned batch is ~20x slower on XLA:TPU (see
-            # ops/estimators.py module note).  Extra lanes re-run alpha=0
-            # (the nominal) and are sliced off before the argmin, so the
-            # selection is unchanged.  TPU-only: the pathology is an
-            # XLA:TPU layout artifact, and on CPU the extra lanes would be
-            # pure added rollout work (the latency wall).
-            n_alpha = alphas.shape[0]
-            pad = ((-n_alpha) % 8
-                   if jax.default_backend() == "tpu" else 0)
-            if pad:
-                alphas_p = jnp.concatenate([alphas, jnp.zeros(pad)])
-            else:
-                alphas_p = alphas
-            xs_all, us_all, costs_all = jax.vmap(rollout)(alphas_p)
-            if pad:
-                xs_all = xs_all[:n_alpha]
-                us_all = us_all[:n_alpha]
-                costs_all = costs_all[:n_alpha]
+        xs_all, us_all, costs_all = jax.vmap(rollout)(alphas)
         totals = jnp.where(jnp.isnan(costs_all[:, 0]), jnp.inf,
                            costs_all[:, 0])
         best = jnp.argmin(totals)
-        x_new, us, cvec = xs_all[best], us_all[best], costs_all[best]
-        return x_new, us, key, cvec
+        return xs_all[best], us_all[best], costs_all[best]
 
     # ------------------------------------------------------------------
     def local_descent(self, x_trj, u_trj):

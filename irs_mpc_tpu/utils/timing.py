@@ -3,7 +3,7 @@
 The reference's only instrumentation is wall-clock prints inside ``iterate``
 (``irs_lqr/irs_lqr.py:200-203``) and commented-out cProfile harnesses
 (``run_planar_hand.py:191-194``).  This module provides labelled phase
-timers with aggregate stats and a jax.profiler trace context for TPU
+timers with aggregate stats and a jax.profiler trace context for device
 timeline capture (SURVEY §5.1 "build: structured per-phase timers +
 jax.profiler traces").
 """

@@ -295,7 +295,7 @@ def test_over_relaxation_matches_oracle_at_half_iters(seed):
     """ADMM over-relaxation (a=1.6, Boyd §3.4.3): 15 over-relaxed sweeps
     must match the f64 oracle within the tolerance the plain scheme needs
     30 sweeps for — the latency-halving knob used by the hot contact
-    drivers (each sweep is a serial Riccati scan on TPU)."""
+    drivers (each sweep is serial over the horizon)."""
     A, B, c, Q, Qd, R, x0, xd = _random_problem(T=6, n=3, m=2, seed=seed)
     prob = lqr_ops.build_tracking_problem(A, B, c, Q, Qd, R, x0, xd)
     T, n, m = B.shape
@@ -327,7 +327,7 @@ def test_over_relaxation_matches_oracle_at_half_iters(seed):
 
 def test_factored_admm_matches_generic_path():
     """The factored sweep loop (one Riccati factorization + per-sweep
-    linear re-solves; the scan/pallas-backend default) must agree with the
+    linear re-solves; the sequential default) must agree with the
     generic full-solve-per-sweep path (kept for the assoc backend) to
     backend-numerics tolerance."""
     for seed in range(2):
@@ -339,7 +339,7 @@ def test_factored_admm_matches_generic_path():
         fast = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
                                           iters=120)
         slow = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
-                                          iters=120, backend="assoc")
+                                          iters=120, parallel=True)
         eu = float(jnp.max(jnp.abs(fast.u_trj - slow.u_trj)))
         assert eu < 2e-3, (seed, eu)
         assert float(fast.r_primal) < 1e-3
@@ -364,3 +364,35 @@ def test_all_none_bounds_degenerates_to_lqr():
     x_ref, u_ref, _ = lqr_ops.lqr_solve(prob)
     np.testing.assert_allclose(sol.u_trj, u_ref, atol=1e-5)
     assert float(sol.r_primal) == 0.0
+
+
+@pytest.mark.parametrize("kinds", [("x", "u"), ("dx",), ("u", "du"),
+                                   ("x", "u", "dx", "du")])
+def test_all_bound_kinds_match_dense_oracle(kinds):
+    """The XLA sweep loop at convergence vs the dense f64 oracle that
+    stacks every bound kind into one QP (native.boxed_tvlqr_oracle, also
+    the reference chip_smoke.py holds the GPU kernel to)."""
+    from irs_mpc_tpu.native import boxed_tvlqr_oracle
+
+    A, B, c, Q, Qd, R, x0, xd = _random_problem(T=6, n=3, m=2, seed=4)
+    T, n, m = B.shape
+    if "du" in kinds:
+        prob = lqr_ops.build_delta_u_problem(A, B, c, Q, Qd, R, x0, xd,
+                                             jnp.arange(m))
+        idx_w = np.arange(n, n + m)
+    else:
+        prob = lqr_ops.build_tracking_problem(A, B, c, Q, Qd, R, x0, xd)
+        idx_w = None
+    box = lambda rows, w, v: jnp.stack([jnp.full((rows, w), -v),
+                                        jnp.full((rows, w), v)])
+    bounds = admm_ops.BoxBounds(
+        x=box(T + 1, n, 2.0) if "x" in kinds else None,
+        u=box(T, m, 0.3) if "u" in kinds else None,
+        dx=box(T, n, 0.4) if "dx" in kinds else None,
+        du=box(T, m, 0.2) if "du" in kinds else None)
+    sol = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, idx_w=idx_w,
+                                     rho=5.0, iters=400, over_relax=1.6)
+    x_or, u_or = boxed_tvlqr_oracle(prob, bounds, n_phys=n, idx_w=idx_w)
+    assert float(sol.r_primal) < 1e-3
+    np.testing.assert_allclose(sol.u_trj, u_or, rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(sol.x_trj, x_or, rtol=5e-3, atol=5e-3)

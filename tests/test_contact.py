@@ -455,3 +455,85 @@ def test_warm_start_mbp_rollout():
     xw = jax.jit(sys_ws.rollout)(jnp.asarray(x0), jnp.asarray(u_trj))
     xr = jax.jit(sys_ref.rollout)(jnp.asarray(x0), jnp.asarray(u_trj))
     assert float(jnp.abs(xw - xr).max()) < 1e-3
+
+
+def _contact_nominal(name, model):
+    """A contact-engaged configuration of each quasistatic example task."""
+    if name == "planar_hand":
+        return model.get_x_from_q_dict(
+            {"sphere": np.array([0.0, 0.35, 0.0]),
+             "arm_left": np.array([-np.pi / 4, -np.pi / 4]),
+             "arm_right": np.array([np.pi / 4, np.pi / 4])})
+    if name == "plate_pickup":
+        return model.get_x_from_q_dict(
+            {"plate": np.array([0.0, 0.04, 0.0]),
+             "gripper": np.array([0.0, 0.30, 0.0, -0.16, -0.16])})
+    if name == "box_pushing":
+        return np.array([0., 0.5, 0., 0., -0.12], np.float32)
+    return np.array([0.45, 0.5, 0., -0.15, 0.5], np.float32)  # pivoting
+
+
+def _oracle_step(model, q, u):
+    """One quasistatic step through the native f64 active-set oracle."""
+    from irs_mpc_tpu.native import qp_ineq_solve_grad
+    P, b = model._hessian_and_bias(q, u)
+    C, d = model._constraint_rows(q)
+    dq, _, _ = qp_ineq_solve_grad(*(np.asarray(a, np.float64)
+                                    for a in (P, b, C, d)))
+    return np.asarray(q, np.float64) + dq
+
+
+_CONTACT_TASKS = ["planar_hand", "box_pushing", "box_pivoting",
+                  "plate_pickup"]
+
+
+@pytest.mark.parametrize("name", _CONTACT_TASKS)
+def test_xla_pdip_step_matches_native_oracle(name):
+    """The vmapped XLA PDIP (the estimation sweep's solver, at the model's
+    own qp_iters) vs the native oracle on perturbed contact states of each
+    task whose rollout path runs it."""
+    import jax
+    from irs_mpc_tpu.models.contact import systems
+
+    m = getattr(systems, f"make_{name}")()
+    q0 = _contact_nominal(name, m)
+    rng = np.random.RandomState(1)
+    iu = m.indices_u_into_x()
+    B = 6
+    xs, us = [], []
+    for _ in range(B):
+        xs.append(q0 + 0.003 * rng.randn(m.nq))
+        us.append(xs[-1][iu] + 0.01 * rng.randn(len(iu)))
+    x = jnp.asarray(np.stack(xs), jnp.float32)
+    u = jnp.asarray(np.stack(us), jnp.float32)
+    got = np.asarray(m.system().step_batch(x, u))
+    for i in range(B):
+        np.testing.assert_allclose(got[i], _oracle_step(m, x[i], u[i]),
+                                   atol=1e-3, err_msg=f"{name} sample {i}")
+
+
+@pytest.mark.parametrize("name", _CONTACT_TASKS)
+def test_warm_chain_matches_native_oracle(name):
+    """The warm-started rollout chain (step_ws: each knot's PDIP starts
+    from the previous knot's solution, qp_iters_ws iterations) that the
+    line search runs, knot by knot against the native oracle's step from
+    the same state."""
+    import jax
+    from irs_mpc_tpu.models.contact import systems
+
+    m = getattr(systems, f"make_{name}")()
+    q0 = _contact_nominal(name, m)
+    iu = m.indices_u_into_x()
+    rng = np.random.RandomState(2)
+    T = 6
+    u_trj = (np.tile(q0[iu], (T, 1))
+             + np.cumsum(rng.randn(T, len(iu)) * 0.005, 0)).astype(np.float32)
+    sys_ = m.system()
+    assert sys_.step_ws_fn is not None
+    xs = np.asarray(jax.jit(sys_.rollout)(jnp.asarray(q0),
+                                          jnp.asarray(u_trj)))
+    for t in range(T):
+        np.testing.assert_allclose(
+            xs[t + 1], _oracle_step(m, jnp.asarray(xs[t]),
+                                    jnp.asarray(u_trj[t])),
+            atol=2e-3, err_msg=f"{name} knot {t}")

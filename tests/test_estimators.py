@@ -226,3 +226,24 @@ def test_fused_sweep_decouple_reuses_f_nom():
         np.testing.assert_allclose(d_reuse.c, d_recomp.c, atol=1e-5)
         np.testing.assert_allclose(d_reuse.A, d_recomp.A, atol=0)
         np.testing.assert_allclose(d_reuse.B, d_recomp.B, atol=0)
+
+
+def test_flat_call_restores_namedtuple_outputs():
+    """_flat_call rebuilds every output leaf, NamedTuples included (a
+    ``type(out)(generator)`` rebuild fails for them)."""
+    from typing import NamedTuple
+
+    from irs_mpc_tpu.ops.estimators import _flat_call
+
+    class Pair(NamedTuple):
+        a: jnp.ndarray
+        b: jnp.ndarray
+
+    x = jnp.arange(3 * 4 * 2, dtype=jnp.float32).reshape(3, 4, 2)
+    out = _flat_call(lambda v: Pair(a=v * 2.0, b=v.sum(axis=1)), x)
+    assert isinstance(out, Pair)
+    assert out.a.shape == (3, 4, 2) and out.b.shape == (3, 4)
+    np.testing.assert_allclose(out.a, np.asarray(x) * 2.0)
+    np.testing.assert_allclose(out.b, np.asarray(x).sum(axis=2))
+    plain = _flat_call(lambda v: (v, v[:, 0]), x)
+    assert isinstance(plain, tuple) and plain[1].shape == (3, 4)

@@ -13,8 +13,8 @@ Budget note: 8 descents is enough to be deep into each curve's contact-rich
 regime (planar-hand 325 -> ~22 of an eventual ~14.5) while keeping CPU CI
 tractable; carrots (45 dof, 20 objects) runs 3 descents for the same
 reason.  Expected values were calibrated on the CPU backend (the CI
-platform, lax.scan Riccati path) at seed 0; the TPU/Pallas path is locked
-separately by bench.py's accuracy assertions and the committed CSVs.
+platform, XLA ADMM path) at seed 0; the GPU path is locked separately by
+chip_smoke.py's checks and the committed CSVs (run_all.py --check).
 
 Tolerance: ±12% relative on the converged cost — wide enough for cross-
 version XLA CPU drift and estimator RNG sensitivity under legitimate

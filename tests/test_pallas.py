@@ -1,244 +1,48 @@
-"""Pallas Riccati kernel vs the lax.scan reference implementation.
+"""The whole-loop boxed-ADMM GPU kernel (ops/pallas_admm.py, Pallas on the
+Triton route) and the one place that chooses it (ops/admm.py).
 
-On CPU CI the kernel runs under the Pallas TPU interpreter; on real TPU it
-compiles through Mosaic (exercised by bench/examples with
-riccati_backend="pallas")."""
+On the CPU the kernel runs under the Pallas interpreter
+(``solve_boxed_tvlqr_kernel(..., interpret=True)``) against the XLA sweep
+loop, and its Triton lowering for CUDA is checked without a card.  The
+compiled kernel itself runs only on a GPU: tests marked ``gpu`` do that
+and skip here (``python -m pytest -m gpu tests/`` on the card).
+"""
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
+from irs_mpc_tpu.ops import admm as admm_ops
 from irs_mpc_tpu.ops import lqr
-from irs_mpc_tpu.ops.pallas_riccati import riccati_backward_pallas
+from irs_mpc_tpu.ops import pallas_admm
 
 
-def _problem(T=12, n=5, m=3, seed=0):
+def _tracking(T, n, m, seed):
     rng = np.random.RandomState(seed)
-    A = jnp.asarray(rng.randn(T, n, n) * 0.3 + np.eye(n), jnp.float32)
+    A = jnp.asarray(rng.randn(T, n, n) * 0.3 / np.sqrt(n) + np.eye(n),
+                    jnp.float32)
     B = jnp.asarray(rng.randn(T, n, m) * 0.5, jnp.float32)
     c = jnp.asarray(rng.randn(T, n) * 0.1, jnp.float32)
     Q = jnp.asarray(np.diag(rng.rand(n) + 0.5), jnp.float32)
     R = jnp.asarray(np.diag(rng.rand(m) + 0.5), jnp.float32)
     x0 = jnp.asarray(rng.randn(n), jnp.float32)
     xd = jnp.asarray(rng.randn(T + 1, n) * 0.5, jnp.float32)
-    return lqr.build_tracking_problem(A, B, c, Q, Q * 3, R, x0, xd)
+    return A, B, c, Q, R, x0, xd
 
 
-def _run_pallas(prob):
-    if jax.devices()[0].platform != "tpu":
-        with pltpu.force_tpu_interpret_mode():
-            return riccati_backward_pallas(prob)
-    return riccati_backward_pallas(prob)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_pallas_riccati_matches_scan(seed):
-    prob = _problem(seed=seed)
-    g_ref = lqr.riccati_backward(prob)
-    g_pal = _run_pallas(prob)
-    np.testing.assert_allclose(g_pal.K, g_ref.K, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(g_pal.k, g_ref.k, rtol=1e-2, atol=1e-2)
-
-
-def test_pallas_riccati_delta_u_problem():
-    """Cross-term (N != 0) path through the kernel."""
-    rng = np.random.RandomState(3)
-    T, n, m = 8, 4, 2
-    A = jnp.asarray(rng.randn(T, n, n) * 0.3 + np.eye(n), jnp.float32)
-    B = jnp.asarray(rng.randn(T, n, m) * 0.5, jnp.float32)
-    c = jnp.asarray(rng.randn(T, n) * 0.1, jnp.float32)
-    Q = jnp.asarray(np.diag(rng.rand(n) + 0.5), jnp.float32)
-    R = jnp.asarray(np.diag(rng.rand(m) + 0.5), jnp.float32)
-    x0 = jnp.asarray(rng.randn(n), jnp.float32)
-    xd = jnp.asarray(rng.randn(T + 1, n) * 0.5, jnp.float32)
-    prob = lqr.build_delta_u_problem(A, B, c, Q, Q * 3, R, x0, xd,
-                                     jnp.array([0, 2], jnp.int32))
-    g_ref = lqr.riccati_backward(prob)
-    g_pal = _run_pallas(prob)
-    np.testing.assert_allclose(g_pal.K, g_ref.K, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(g_pal.k, g_ref.k, rtol=1e-2, atol=1e-2)
-
-
-class TestBatchedQp:
-    """Lane-batched PDIP kernel vs the vmapped reference solver."""
-
-    def _instances(self, B=64, n=5, m=8, seed=0):
-        rng = np.random.RandomState(seed)
-        A = rng.randn(B, n, n)
-        P = A @ A.transpose(0, 2, 1) + np.eye(n) * 2
-        q = rng.randn(B, n)
-        C = rng.randn(B, m, n)
-        d = np.einsum("bmn,bn->bm", C, rng.randn(B, n) * 0.3) \
-            + rng.rand(B, m) * 0.5
-        return [jnp.asarray(a, jnp.float32) for a in (P, q, C, d)]
-
-    def test_matches_vmapped_solver(self):
-        from irs_mpc_tpu.models.contact.pallas_qp import solve_qp_batched
-        from irs_mpc_tpu.models.contact.qp import solve_qp
-        P, q, C, d = self._instances()
-        interp = jax.devices()[0].platform != "tpu"
-        x_pal = solve_qp_batched(P, q, C, d, iters=30, interpret=interp)
-        x_ref = jax.vmap(lambda *a: solve_qp(*a, 30))(P, q, C, d)
-        np.testing.assert_allclose(x_pal, x_ref, atol=2e-2)
-
-    def test_contact_step_batch_equivalence(self):
-        """QuasistaticModel.system(pallas_batch=True).step_batch must equal
-        the vmapped step on contact states."""
-        from irs_mpc_tpu.models.contact.systems import make_box_pushing
-        from irs_mpc_tpu.models.contact import pallas_qp
-        from jax.experimental.pallas import tpu as pltpu
-        m = make_box_pushing()
-        sys_ref = m.system()
-        sys_pal = m.system(pallas_batch=True)
-        assert sys_pal.step_batch_fn is not None
-        rng = np.random.RandomState(1)
-        B = 32
-        x = jnp.asarray(
-            np.tile([0., 0.5, 0., 0., -0.12], (B, 1))
-            + rng.randn(B, 5) * 0.03, jnp.float32)
-        u = x[:, 3:5] + jnp.asarray(rng.randn(B, 2) * 0.05, jnp.float32)
-        ref = sys_ref.step_batch(x, u)
-        if jax.devices()[0].platform == "tpu":
-            pal = sys_pal.step_batch(x, u)
-        else:
-            with pltpu.force_tpu_interpret_mode():
-                pal = sys_pal.step_batch(x, u)
-        np.testing.assert_allclose(pal, ref, atol=5e-3)
-
-    def test_warm_init_and_dual_output(self):
-        """r5 kernel extensions: ``init=(x0, lam0)`` mirrors
-        qp._pdip_solve's warm branch per lane, ``want_lam=True`` returns
-        sanitized final duals suitable for downstream warm starts."""
-        from irs_mpc_tpu.models.contact.pallas_qp import solve_qp_batched
-        from irs_mpc_tpu.models.contact.qp import _pdip_solve
-        P, q, C, d = self._instances(B=48, seed=3)
-        interp = jax.devices()[0].platform != "tpu"
-        x_cold, lam_cold = solve_qp_batched(P, q, C, d, iters=30,
-                                            want_lam=True, interpret=interp)
-        assert bool(jnp.isfinite(x_cold).all())
-        assert bool(jnp.isfinite(lam_cold).all())
-        assert float(jnp.min(lam_cold)) >= 0.0
-        # Accuracy vs a CONVERGED reference, per-lane p90 (hard lanes
-        # legitimately drift between the kernel and the vmapped path at
-        # matched iteration counts — same criterion as bench.py).
-        conv = jax.vmap(lambda *a: _pdip_solve(*a, 120)[0])(P, q, C, d)
-        scale = float(jnp.max(jnp.abs(conv))) + 1e-9
-        err = np.asarray(jnp.max(jnp.abs(x_cold - conv), axis=1)) / scale
-        ref30 = jax.vmap(lambda *a: _pdip_solve(*a, 30)[0])(P, q, C, d)
-        err_ref = np.asarray(jnp.max(jnp.abs(ref30 - conv), axis=1)) / scale
-        assert np.percentile(err, 90) < max(
-            2.5 * np.percentile(err_ref, 90), 5e-2)
-        # Warm restart from the solution: few iterations stay converged.
-        x_w = solve_qp_batched(P, q, C, d, iters=6,
-                               init=(x_cold, lam_cold), interpret=interp)
-        err_w = np.asarray(jnp.max(jnp.abs(x_w - conv), axis=1)) / scale
-        assert np.percentile(err_w, 90) < max(
-            2.5 * np.percentile(err, 90), 5e-2)
-
-
-def test_pallas_whole_loop_admm_matches_xla():
-    """The whole-ADMM-loop kernel (ops/pallas_admm.py) must reproduce the
-    XLA sweep loop: same factorization, same over-relaxed consensus/dual
-    updates.  Small sizes + few sweeps keep the interpreter tractable on
-    CPU; on TPU this path is additionally exercised end-to-end by every
-    contact driver (backend="pallas" + u-box dispatch) and checked against
-    the f64 oracle at convergence in the bench."""
-    from irs_mpc_tpu.ops import admm as admm_ops
-    from irs_mpc_tpu.ops.pallas_admm import solve_boxed_tvlqr_ubox_pallas
-
-    prob = _problem(T=4, n=3, m=2, seed=5)
-    T, n, m = prob.B.shape
-    bounds = admm_ops.BoxBounds(
-        u=jnp.stack([jnp.full((T, m), -0.3), jnp.full((T, m), 0.3)]))
-    ref = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
-                                     iters=3, over_relax=1.6)
-    x0t, u0t, _ = lqr.lqr_solve(prob)
-    z0 = jnp.clip(u0t, bounds.u[0], bounds.u[1])
-    y0 = jnp.zeros_like(z0)
-
-    def run():
-        return solve_boxed_tvlqr_ubox_pallas(
-            prob, bounds.u[0], bounds.u[1], z0, y0, rho=5.0, iters=3,
-            over_relax=1.6)
-
-    if jax.devices()[0].platform != "tpu":
-        with pltpu.force_tpu_interpret_mode():
-            x_p, u_p, K, k, z, zp = run()
-    else:
-        x_p, u_p, K, k, z, zp = run()
-    np.testing.assert_allclose(u_p, ref.u_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(x_p, ref.x_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(K, ref.gains.K, rtol=1e-3, atol=1e-3)
-    # Residual ingredients agree too (host computes r_primal/r_dual).
-    np.testing.assert_allclose(jnp.max(jnp.abs(u_p - z)), ref.r_primal,
-                               rtol=1e-2, atol=1e-3)
-
-
-def test_admm_pallas_backend_dispatch():
-    """solve_boxed_tvlqr(backend="pallas") with a u-box must route through
-    the whole-loop kernel (init, residuals, gains wiring) and agree with the
-    scan backend."""
-    from irs_mpc_tpu.ops import admm as admm_ops
-
-    prob = _problem(T=4, n=3, m=2, seed=7)
-    T, n, m = prob.B.shape
-    bounds = admm_ops.BoxBounds(
-        u=jnp.stack([jnp.full((T, m), -0.3), jnp.full((T, m), 0.3)]))
-
-    ref = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
-                                     iters=3, over_relax=1.6)
-    if jax.devices()[0].platform != "tpu":
-        with pltpu.force_tpu_interpret_mode():
-            pal = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
-                                             iters=3, over_relax=1.6,
-                                             backend="pallas")
-    else:
-        pal = admm_ops.solve_boxed_tvlqr(prob, bounds, n_phys=n, rho=5.0,
-                                         iters=3, over_relax=1.6,
-                                         backend="pallas")
-    np.testing.assert_allclose(pal.u_trj, ref.u_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(pal.x_trj, ref.x_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(pal.gains.K, ref.gains.K, rtol=1e-3,
-                               atol=1e-3)
-    np.testing.assert_allclose(float(pal.r_primal), float(ref.r_primal),
-                               rtol=1e-2, atol=1e-3)
-
-
-def _delta_u_problem(T=5, n=4, m=2, seed=11):
-    """A Δu-augmented problem (n_aug = n + m, w = x[n:]) for du-box tests."""
-    rng = np.random.RandomState(seed)
-    A = jnp.asarray(rng.randn(T, n, n) * 0.3 + np.eye(n), jnp.float32)
-    B = jnp.asarray(rng.randn(T, n, m) * 0.5, jnp.float32)
-    c = jnp.asarray(rng.randn(T, n) * 0.1, jnp.float32)
-    Q = jnp.asarray(np.diag(rng.rand(n) + 0.5), jnp.float32)
-    R = jnp.asarray(np.diag(rng.rand(m) + 0.5), jnp.float32)
-    x0 = jnp.asarray(rng.randn(n), jnp.float32)
-    xd = jnp.asarray(rng.randn(T + 1, n) * 0.5, jnp.float32)
-    idx_u = jnp.asarray(np.arange(m), jnp.int32)
-    prob = lqr.build_delta_u_problem(A, B, c, Q, Q * 3, R, x0, xd, idx_u)
-    return prob, n
-
-
-@pytest.mark.parametrize("kinds", [("x",), ("dx",), ("x", "u"),
-                                   ("du",), ("u", "du")])
-def test_pallas_admm_all_bound_kinds_match_xla(kinds):
-    """The generalized whole-loop ADMM kernel must reproduce the XLA sweep
-    loop for EVERY bound kind (x / u / dx / du and combinations) — the
-    factorize-once argument holds because all quadratic penalties are
-    sweep-invariant (even dx's D = A - I selector).  du runs on the
-    Δu-augmented problem (w = x[n_phys:]), matching plate-pickup's
-    u_bounds_rel path; x covers the bicycle-hard steering bound."""
-    from irs_mpc_tpu.ops import admm as admm_ops
-
+def _problem(kinds, n_phys, m, T=4, seed=0):
+    """(prob, bounds, n_phys, idx_w).  A du box needs the Δu-augmented
+    layout (w = x[n_phys:]), exactly as the solver builds it."""
+    A, B, c, Q, R, x0, xd = _tracking(T, n_phys, m, seed)
     if "du" in kinds:
-        prob, n_phys = _delta_u_problem()
-        idx_w = jnp.arange(n_phys, prob.B.shape[1])
+        prob = lqr.build_delta_u_problem(A, B, c, Q, Q * 3, R, x0, xd,
+                                         jnp.arange(m))
+        idx_w = np.arange(n_phys, n_phys + m)
     else:
-        prob = _problem(T=5, n=4, m=2, seed=13)
-        n_phys = prob.B.shape[1]
+        prob = lqr.build_tracking_problem(A, B, c, Q, Q * 3, R, x0, xd)
         idx_w = None
-    T, n, m = prob.B.shape
     b = {}
     if "x" in kinds:
         b["x"] = jnp.stack([jnp.full((T + 1, n_phys), -1.0),
@@ -250,51 +54,197 @@ def test_pallas_admm_all_bound_kinds_match_xla(kinds):
                              jnp.full((T, n_phys), 0.5)])
     if "du" in kinds:
         b["du"] = jnp.stack([jnp.full((T, m), -0.2), jnp.full((T, m), 0.2)])
-    bounds = admm_ops.BoxBounds(**b)
+    return prob, admm_ops.BoxBounds(**b), n_phys, idx_w
 
-    kw = dict(n_phys=n_phys, idx_w=idx_w, rho=5.0, iters=4, over_relax=1.6)
-    ref = admm_ops.solve_boxed_tvlqr(prob, bounds, **kw)
-    if jax.devices()[0].platform != "tpu":
-        with pltpu.force_tpu_interpret_mode():
-            pal = admm_ops.solve_boxed_tvlqr(prob, bounds, backend="pallas",
-                                             **kw)
-    else:
-        pal = admm_ops.solve_boxed_tvlqr(prob, bounds, backend="pallas", **kw)
-    np.testing.assert_allclose(pal.u_trj, ref.u_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(pal.x_trj, ref.x_trj, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(pal.gains.K, ref.gains.K, rtol=1e-3,
-                               atol=1e-3)
-    np.testing.assert_allclose(float(pal.r_primal), float(ref.r_primal),
+
+def _assert_kernel_matches_xla(prob, bounds, n_phys, idx_w, over_relax=1.6,
+                               iters=3):
+    """Tolerances as for any two f32 implementations of the same sweeps
+    (u/x/K to 1e-3, residual to rtol 1e-2)."""
+    kw = dict(n_phys=n_phys, idx_w=idx_w, rho=5.0, iters=iters,
+              over_relax=over_relax)
+    ref = admm_ops.solve_boxed_tvlqr(prob, bounds, kernel=False, **kw)
+    ker = admm_ops.solve_boxed_tvlqr_kernel(prob, bounds, interpret=True,
+                                            **kw)
+    tol = dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(ker.u_trj, ref.u_trj, **tol)
+    np.testing.assert_allclose(ker.x_trj, ref.x_trj, **tol)
+    np.testing.assert_allclose(ker.gains.K, ref.gains.K, **tol)
+    np.testing.assert_allclose(ker.gains.k, ref.gains.k, **tol)
+    np.testing.assert_allclose(ker.gains.P, ref.gains.P, rtol=1e-3,
+                               atol=1e-2)
+    np.testing.assert_allclose(float(ker.r_primal), float(ref.r_primal),
                                rtol=1e-2, atol=1e-3)
-    np.testing.assert_allclose(float(pal.r_dual), float(ref.r_dual),
+    np.testing.assert_allclose(float(ker.r_dual), float(ref.r_dual),
                                rtol=1e-2, atol=1e-3)
 
 
-def test_pallas_admm_dispatch_probe_x_and_du(monkeypatch):
-    """solve_boxed_tvlqr(backend="pallas") must actually route x-box and
-    du-box problems through the whole-loop kernel (not silently fall back to
-    the XLA path) — the bicycle-hard and plate-pickup configurations."""
-    from irs_mpc_tpu.ops import admm as admm_ops
-    from irs_mpc_tpu.ops import pallas_admm
+_ALL_KIND_SETS = [ks for r in range(1, 5)
+                  for ks in itertools.combinations(pallas_admm.KINDS, r)]
 
-    calls = []
-    real = pallas_admm.solve_boxed_tvlqr_pallas
 
-    def probe(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
+@pytest.mark.parametrize("kinds", _ALL_KIND_SETS,
+                         ids=["+".join(k) for k in _ALL_KIND_SETS])
+def test_kernel_matches_xla_every_bound_kind_set(kinds):
+    """All 15 non-empty combinations of the reference's four bound kinds."""
+    _assert_kernel_matches_xla(*_problem(kinds, n_phys=4, m=2, seed=13))
 
-    monkeypatch.setattr(pallas_admm, "solve_boxed_tvlqr_pallas", probe)
 
-    prob, n_phys = _delta_u_problem(seed=17)
+@pytest.mark.parametrize("n,m", [(2, 1), (2, 4), (7, 1), (7, 4), (11, 1),
+                                 (11, 4), (16, 1), (16, 4)])
+def test_kernel_matches_xla_padding_shapes(n, m):
+    """State widths below, at and up to the 16-wide tile, inputs 1 and 4 —
+    the padded rows/columns must decouple exactly."""
+    _assert_kernel_matches_xla(*_problem(("x", "u"), n_phys=n, m=m,
+                                         seed=n + m))
+
+
+@pytest.mark.parametrize("over_relax", [1.0, 1.6, 1.9])
+def test_kernel_matches_xla_over_relaxation(over_relax):
+    _assert_kernel_matches_xla(*_problem(("u", "du"), n_phys=3, m=2,
+                                         seed=7), over_relax=over_relax)
+
+
+def test_kernel_lowers_to_triton_for_cuda():
+    """The kernel at the planar-hand widths (T=30, n_aug=11, m=4, all four
+    kinds, 12 sweeps) lowers to Triton IR for CUDA — every load and value a
+    power-of-two tile, every primitive one the Triton route implements —
+    without a card.  (Compiling the IR needs the GPU.)"""
+    prob, bounds, n_phys, idx_w = _problem(("x", "u", "dx", "du"),
+                                           n_phys=7, m=4, T=30)
+    f = jax.jit(lambda p, b: admm_ops.solve_boxed_tvlqr_kernel(
+        p, b, n_phys=n_phys, idx_w=idx_w, rho=1.0, iters=12,
+        over_relax=1.6))
+    text = f.trace(prob, bounds).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert 'name = "boxed_admm"' in text or "boxed_admm" in text
+
+
+def test_kernel_values_stay_rank_two():
+    """No value inside the kernel has rank > 2: Triton rewrites a rank-3
+    broadcast-multiply-sum into a TF32 tensor-core dot, which cost the
+    gains 1e-3 of relative accuracy on the H100."""
+    prob, bounds, n_phys, idx_w = _problem(("x", "u", "dx", "du"),
+                                           n_phys=7, m=4, T=5)
+    jaxpr = jax.make_jaxpr(lambda p, b: admm_ops.solve_boxed_tvlqr_kernel(
+        p, b, n_phys=n_phys, idx_w=idx_w, iters=2))(prob, bounds)
+    calls = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "pallas_call"]
+    assert len(calls) == 1
+
+    def ranks(jx):
+        for eqn in jx.eqns:
+            for v in eqn.outvars:
+                if hasattr(v.aval, "shape") and not hasattr(v.aval, "inner_aval"):
+                    yield len(v.aval.shape), eqn.primitive.name
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from ranks(sub)
+
+    bad = [r for r in ranks(calls[0].params["jaxpr"]) if r[0] > 2]
+    assert not bad, bad[:5]
+
+
+def test_padded_dims():
+    assert pallas_admm.padded_dims(2, 1) == (16, 1)
+    assert pallas_admm.padded_dims(11, 4) == (16, 4)
+    assert pallas_admm.padded_dims(16, 3) == (16, 4)
+    assert pallas_admm.padded_dims(17, 5) == (32, 8)
+
+
+# ---- the one place that chooses -------------------------------------------
+
+def _dispatch_case(kinds=("u",), n_phys=7, m=4):
+    prob, bounds, n_phys, idx_w = _problem(kinds, n_phys=n_phys, m=m)
     T, n, m = prob.B.shape
-    bounds = admm_ops.BoxBounds(
-        x=jnp.stack([jnp.full((T + 1, n_phys), -1.0),
-                     jnp.full((T + 1, n_phys), 1.0)]),
-        du=jnp.stack([jnp.full((T, m), -0.2), jnp.full((T, m), 0.2)]))
-    with pltpu.force_tpu_interpret_mode():
-        sol = admm_ops.solve_boxed_tvlqr(
-            prob, bounds, n_phys=n_phys, idx_w=jnp.arange(n_phys, n),
-            rho=5.0, iters=3, backend="pallas")
-    assert calls, "pallas backend fell back to the XLA path"
-    assert bool(jnp.isfinite(sol.u_trj).all())
+    return bounds, n_phys, n, m, idx_w
+
+
+@pytest.mark.parametrize("case,expect", [
+    (dict(platform="gpu"), None),
+    (dict(platform="cpu"), "only on a GPU"),
+    (dict(platform="gpu", parallel=True), "associative"),
+    (dict(platform="gpu", bounds=admm_ops.BoxBounds()), "no bound kind"),
+    (dict(platform="gpu", n=17), "exceed"),
+    (dict(platform="gpu", kinds=("du",)), None),
+    (dict(platform="gpu", kinds=("du",), idx_w=np.arange(0, 4)),
+     "arange(n_phys, n)"),
+])
+def test_kernel_unsupported_rule(case, expect):
+    bounds, n_phys, n, m, idx_w = _dispatch_case(case.get("kinds", ("u",)))
+    why = admm_ops.kernel_unsupported(
+        case.get("bounds", bounds), n_phys, case.get("n", n), m,
+        case.get("idx_w", idx_w), case.get("parallel", False),
+        case["platform"])
+    if expect is None:
+        assert why is None
+    else:
+        assert expect in why
+
+
+def test_traced_idx_w_takes_the_xla_path():
+    bounds, n_phys, n, m, idx_w = _dispatch_case(("du",))
+    seen = []
+
+    @jax.jit
+    def probe(w):
+        seen.append(admm_ops.kernel_unsupported(bounds, n_phys, n, m, w,
+                                                False, "gpu"))
+        return w
+
+    probe(jnp.asarray(idx_w))
+    assert "traced idx_w" in seen[0]
+
+
+def test_kernel_request_raises_where_it_cannot_run():
+    """On the CPU there is no kernel: asking for it raises, and the default
+    choice is the XLA path, bit for bit (nothing runs interpreted)."""
+    prob, bounds, n_phys, idx_w = _problem(("u",), n_phys=3, m=2)
+    kw = dict(n_phys=n_phys, idx_w=idx_w, rho=5.0, iters=3)
+    with pytest.raises(ValueError, match="only on a GPU"):
+        admm_ops.solve_boxed_tvlqr(prob, bounds, kernel=True, **kw)
+    with pytest.raises(ValueError, match="no bound kind"):
+        admm_ops.solve_boxed_tvlqr(prob, admm_ops.BoxBounds(), kernel=True,
+                                   **kw)
+    auto = admm_ops.solve_boxed_tvlqr(prob, bounds, **kw)
+    xla = admm_ops.solve_boxed_tvlqr(prob, bounds, kernel=False, **kw)
+    np.testing.assert_array_equal(np.asarray(auto.u_trj),
+                                  np.asarray(xla.u_trj))
+
+
+def test_solver_kernel_request_raises_on_cpu():
+    """IrsMpcParams.admm_kernel=True reaches the chooser and raises off
+    the GPU instead of running anything else."""
+    from irs_mpc_tpu import IrsMpc, IrsMpcParams, SmoothingConfig
+    from irs_mpc_tpu.models.pendulum import make_pendulum
+
+    T = 5
+    p = IrsMpcParams(
+        Q=np.eye(2), Qd=np.eye(2), R=np.eye(1), x0=np.zeros(2),
+        xd_trj=np.tile([np.pi, 0.], (T + 1, 1)),
+        u_trj_init=np.zeros((T, 1)),
+        u_bounds_abs=np.array([[-1.0], [1.0]]),
+        gradient_mode="exact", admm_iters=2, admm_kernel=True,
+        smoothing=SmoothingConfig(num_samples=4))
+    s = IrsMpc(make_pendulum(0.05), p)
+    with pytest.raises(ValueError, match="only on a GPU"):
+        s.iterate(1, verbose=False)
+
+
+# ---- on the card -----------------------------------------------------------
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu(gpu):
+    """The compiled kernel at the planar-hand widths against the XLA path
+    under "highest" precision (chip_smoke.py runs the same comparison on
+    the real captured problem)."""
+    prob, bounds, n_phys, idx_w = _problem(("x", "u", "dx", "du"),
+                                           n_phys=7, m=4, T=30)
+    kw = dict(n_phys=n_phys, idx_w=idx_w, rho=1.0, iters=12,
+              over_relax=1.6)
+    with jax.default_matmul_precision("highest"):
+        ker = admm_ops.solve_boxed_tvlqr(prob, bounds, kernel=True, **kw)
+        ref = admm_ops.solve_boxed_tvlqr(prob, bounds, kernel=False, **kw)
+    np.testing.assert_allclose(ker.u_trj, ref.u_trj, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(ker.x_trj, ref.x_trj, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(ker.gains.K, ref.gains.K, rtol=1e-3,
+                               atol=1e-3)
